@@ -8,8 +8,12 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device and build: the card's name and power limit, then the hand-written
    kernels of ``h264tpu_torch/csrc`` built with nvcc (ptxas register and
    shared-memory report printed);
-2. every kernel against its plain PyTorch version on the card at the shapes
-   of the main path (exact int32 equality), timed with CUDA events;
+2. every kernel against its plain PyTorch version on the card (exact int32
+   equality) at the shapes of the main path (CIF luma and chroma, 1080p
+   luma) and of the search's other options (search modes 1-3, SR 16, one
+   reference plane, ragged tiles); each case reports the kernel's device
+   time per launch (torch.profiler kernel events) and, apart from it, the
+   wrapper's call time (CUDA events around back-to-back calls);
 3. the main path at full size: ``FractalCodec.encode_sequence`` of 1 I + 7 P
    CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC) with the
    kernel launch counters reset just before and read just after, then
@@ -67,6 +71,9 @@ def blocky_frames(n: int, H: int, W: int, seed: int):
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean ms per call of ``fn`` between CUDA events around ``reps``
+    back-to-back calls: for a wrapper whose launches are shorter than its
+    host work, this is the wrapper's call time, not the kernel's."""
     import torch
     for _ in range(warm):
         fn()
@@ -78,6 +85,28 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, name: str = "cross_cells_kernel") -> float:
+    """Mean device time in ms of one launch of the kernel whose name holds
+    ``name``, from the kernel events torch.profiler records over ``reps``
+    calls of ``fn`` (after one warm-up call).  Fails unless every call
+    launched the kernel exactly once."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    check(len(us) == reps and all(u > 0 for u in us),
+          f"the profiler saw {len(us)} {name} launches with device time, "
+          f"not {reps}")
+    return sum(us) / len(us) / 1e3
 
 
 def phase_device_and_build():
@@ -108,45 +137,80 @@ def phase_device_and_build():
     return card
 
 
+# name, H, W, search range, reference planes R, search mode
+KERNEL_CASES = (
+    ("cif_luma", 288, 352, 7, 4, 0),
+    ("cif_chroma", 144, 176, 7, 4, 0),
+    ("1080p_luma", 1088, 1920, 7, 4, 0),
+    ("cif_luma_mode1", 288, 352, 7, 4, 1),
+    ("cif_luma_mode2", 288, 352, 7, 4, 2),
+    ("cif_luma_mode3", 288, 352, 7, 4, 3),
+    ("cif_luma_sr16", 288, 352, 16, 4, 0),
+    ("cif_luma_r1", 288, 352, 7, 1, 0),
+    ("odd_sr4_r8", 72, 88, 4, 8, 0),
+    ("ragged_sr2_r1", 36, 44, 2, 1, 0),
+)
+
+
+def cross_cells_inputs(rng, H: int, W: int, sr: int, R: int):
+    """(org [H, W], refs_pad [R, H+2sr, W+2sr]) int32 pixels on the card."""
+    import torch
+    org = torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.int32)
+    refs = torch.as_tensor(rng.integers(0, 256, (R, H, W)), dtype=torch.int32)
+    refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr))
+    return org.cuda(), refs_pad.contiguous().cuda()
+
+
+def cross_cells_bound_ms(H: int, W: int, R: int, sr: int, n_off: int):
+    """(bound ms, "bytes" or "operations"): each input read once (org,
+    refs_pad, the slot table) and cross4 written once at the HBM rate,
+    against 2*R*n_off*H*W operations at the CUDA cores' rate."""
+    nbytes = 4 * (H * W + R * (H + 2 * sr) * (W + 2 * sr) + (2 * sr + 1) ** 2
+                  + R * n_off * (H // 4) * (W // 4))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * R * n_off * H * W / CUDA_CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(seed: int):
-    """cross_cells against its plain version at the main path's shapes."""
+    """cross_cells against its plain version (exact int32 equality) at the
+    main path's shapes and the search's other options; device time of one
+    launch (torch.profiler), the wrapper's call time, the plain version's."""
     import torch
     from h264tpu_torch.ops import fractal as F
     rng = np.random.default_rng(seed + 1)
-    cases = [("cif_luma", 288, 352, 7, 4), ("cif_chroma", 144, 176, 7, 4),
-             ("odd_sr4_r8", 72, 88, 4, 8)]
     rows = {}
-    for name, H, W, sr, R in cases:
-        org = torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.int32)
-        refs = torch.as_tensor(rng.integers(0, 256, (R, H, W)), dtype=torch.int32)
-        org, refs = org.cuda(), refs.cuda()
-        refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr)).contiguous()
-        offs_np = F.spiral_offsets(sr)
-        offs = torch.as_tensor(offs_np).cuda()
-        got = F.cross_cell_sums(org, refs_pad, offs, sr)
+    for name, H, W, sr, R, mode in KERNEL_CASES:
+        org, refs_pad = cross_cells_inputs(rng, H, W, sr, R)
+        offs_np = F.candidate_offsets(sr, mode)
+        offs, slots = F.offset_tables(offs_np, sr, "cuda")
+        got = F.cross_cell_sums(org, refs_pad, offs, sr, slots)
         want = F.cross_cell_sums_reference(org, refs_pad, offs, sr)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        check(err == 0 and got.shape == want.shape,
-              f"cross_cells != plain version at {name}: max abs err {err}")
-        launches0 = F.cross_cell_sums.launches
-        ms = cuda_ms(lambda: F.cross_cell_sums(org, refs_pad, offs, sr), 50)
-        timed = F.cross_cell_sums.launches - launches0
+        check(got.shape == want.shape,
+              f"cross_cells shape {tuple(got.shape)} at {name}")
+        err = int((got - want).abs().max())
+        check(err == 0, f"cross_cells != plain version at {name}: "
+              f"max abs err {err}")
+        del want
+
+        def call():
+            return F.cross_cell_sums(org, refs_pad, offs, sr, slots)
+        ms = kernel_device_ms(call, 20)
+        call_ms = cuda_ms(call, 50)
         plain_ms = cuda_ms(
-            lambda: F.cross_cell_sums_reference(org, refs_pad, offs, sr), 5, 1)
+            lambda: F.cross_cell_sums_reference(org, refs_pad, offs, sr), 3, 1)
         n_off = len(offs_np)
-        nbytes = 4 * (org.numel() + refs_pad.numel() + offs.numel() + got.numel())
-        ops = 2 * R * n_off * H * W            # one multiply + one add per MAC
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms, bound_by = cross_cells_bound_ms(H, W, R, sr, n_off)
+        rows[name] = dict(ms=ms, wrapper_call_ms=call_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
                           max_abs_err=err)
         print(f"[kernel cross_cells {name}] H={H} W={W} sr={sr} R={R} "
-              f"n_off={n_off}: exact; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms "
-              f"(bytes {t_bytes:.4f}, ops {t_ops:.4f}); {timed} timed "
-              f"launches counted", flush=True)
+              f"mode={mode} n_off={n_off}: exact; device {ms:.4f} ms "
+              f"(bound {bound_ms:.4f} ms by {bound_by}, share "
+              f"{bound_ms / ms:.3f}); wrapper call {call_ms:.4f} ms; "
+              f"plain {plain_ms:.3f} ms", flush=True)
+        del got
     return rows
 
 
@@ -300,10 +364,12 @@ def phase_main_path(seed: int, profile_dir=None):
 def phase_1080p(seed: int):
     import torch
     from h264tpu_torch.models.fractal_codec import FractalCodec
+    from h264tpu_torch.ops import fractal as F
     H, W = 1088, 1920
     frames = blocky_frames(2, H, W, seed)
     codec = FractalCodec(cif_config(H, W), device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    F.cross_cell_sums.launches = 0
     t0 = time.perf_counter()
     i_res, _ = codec.encode_frame(frames[0], None, 0)
     torch.cuda.synchronize()
@@ -312,16 +378,19 @@ def phase_1080p(seed: int):
     p_res, _ = codec.encode_frame(frames[1], i_res.recon_dev, 1)
     torch.cuda.synchronize()
     p_s = time.perf_counter() - t0
+    launches = F.cross_cell_sums.launches
     check(np.isfinite(p_res.psnr_y) and p_res.frame_type == "P",
           "1080p P frame failed")
+    check(launches > 0, "the 1080p P frame launched cross_cells no time")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[1080p] I frame {i_s:.3f} s (PSNR Y {i_res.psnr_y:.3f}, "
           f"{i_res.bits} bits); P frame {p_s:.3f} s (PSNR Y "
           f"{p_res.psnr_y:.3f}, {p_res.bits} bits); peak device memory "
-          f"{peak:.2f} GiB", flush=True)
+          f"{peak:.2f} GiB; cross_cells launches {launches}", flush=True)
     stages = p_frame_stages(codec, frames[1], i_res.recon_dev)
     print("[1080p] one P frame by stage (ms): " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    return launches
 
 
 def phase_card_vs_cpu(seed: int):
@@ -350,18 +419,20 @@ def main(argv=None) -> int:
     phase_device_and_build()
     krows = phase_kernels(args.seed)
     launches = phase_main_path(args.seed, args.profile_dir)
-    phase_1080p(args.seed)
+    launches_1080p = phase_1080p(args.seed)
     phase_card_vs_cpu(args.seed)
-    main_row = krows["cif_luma"]
     record = {"kernels": [{
-        "name": "cross_cells", "route": "cuda",
+        "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",
         "replaces": "h264tpu/ops/fractal.py:338",
-        "launches": launches["cross_cells"],
+        "launches": n_launch,
         "max_abs_err": max(r["max_abs_err"] for r in krows.values()),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]}
+        "ms": krows[case]["ms"], "plain_ms": krows[case]["plain_ms"],
+        "bound_ms": krows[case]["bound_ms"],
+        "bound_by": krows[case]["bound_by"], "library_ms": None,
+        "wrapper_call_ms": krows[case]["wrapper_call_ms"]}
+        for case, n_launch in (("cif_luma", launches["cross_cells"]),
+                               ("1080p_luma", launches_1080p))]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -91,13 +91,15 @@ def load(name: str):
 
 
 def launch_cross_cells(org: torch.Tensor, refs_pad: torch.Tensor,
-                       offsets: torch.Tensor, out: torch.Tensor, sr: int):
-    """Launch ``cross_cells`` on the current stream (arguments checked by the
-    caller, ``ops.fractal.cross_cell_sums``); raises on a launch error."""
+                       slots: torch.Tensor, out: torch.Tensor, sr: int):
+    """Launch ``cross_cells`` on the current stream into ``out`` [R, n_off,
+    H/4, W/4] (arguments checked by the caller, ``ops.fractal.cross_cell_sums``);
+    raises on a launch error."""
     H, W = org.shape
+    R, n_off = out.shape[:2]
     err = load("cross_cells")(
-        org.data_ptr(), refs_pad.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), H, W, refs_pad.shape[0], offsets.shape[0], sr,
+        org.data_ptr(), refs_pad.data_ptr(), slots.data_ptr(),
+        out.data_ptr(), H, W, R, n_off, sr,
         org.device.index if org.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(org.device).cuda_stream)

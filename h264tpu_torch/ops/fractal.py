@@ -184,36 +184,72 @@ def cross_cell_sums_reference(org: torch.Tensor, refs_pad: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+def offset_slots(offsets: np.ndarray, sr: int) -> np.ndarray:
+    """The kernel's map from box position to offset: [(2sr+1)^2] int32 with
+    ``slots[(dy+sr)*(2sr+1) + dx+sr] = k`` for ``offsets[k] = (dx, dy)`` and
+    -1 at every position that is not a candidate.  Raises on an offset
+    outside the box or one given twice."""
+    offsets = np.asarray(offsets, np.int64).reshape(-1, 2)
+    nd = 2 * sr + 1
+    if offsets.size and np.abs(offsets).max() > sr:
+        raise ValueError(f"offset_slots: an offset lies outside +-{sr}")
+    pos = (offsets[:, 1] + sr) * nd + offsets[:, 0] + sr
+    if np.unique(pos).size != pos.size:
+        raise ValueError("offset_slots: an offset is given twice")
+    slots = np.full(nd * nd, -1, np.int32)
+    slots[pos] = np.arange(pos.size, dtype=np.int32)
+    return slots
+
+
+def offset_tables(offsets: np.ndarray, sr: int, device):
+    """(offsets, slots) of one candidate set on ``device``, uploaded once."""
+    key = f"{sr}:{hash(offsets.tobytes())}"
+    return (device_const("offsets" + key, offsets.astype(np.int32), device),
+            device_const("slots" + key, offset_slots(offsets, sr), device))
+
+
 def cross_cell_sums(org: torch.Tensor, refs_pad: torch.Tensor,
-                    offsets: torch.Tensor, sr: int) -> torch.Tensor:
+                    offsets: torch.Tensor, sr: int,
+                    slots: torch.Tensor = None) -> torch.Tensor:
     """cross4 [R, n_off, H/4, W/4] int32 — see :func:`cross_cell_sums_reference`.
 
     On a CUDA tensor this launches the hand-written kernel
-    (``csrc/cross_cells.cu``) or raises; on a CPU tensor it runs the plain
-    version.  ``cross_cell_sums.launches`` counts kernel launches.
+    (``csrc/cross_cells.cu``) or raises; the kernel needs ``slots``, the
+    table :func:`offset_slots` builds from the same offsets
+    (:func:`offset_tables` caches both on the card).  The kernel packs its
+    inputs to bytes: every value of ``org`` and ``refs_pad`` must lie in
+    0..255, as the main path's pixels do.  On a CPU tensor it runs the plain
+    version and ``slots`` is not used.
+    ``cross_cell_sums.launches`` counts kernel launches.
     """
     if org.device.type == "cpu":
         return cross_cell_sums_reference(org, refs_pad, offsets, sr)
     if org.device.type != "cuda":
         raise ValueError(f"cross_cell_sums: unsupported device {org.device}")
+    if slots is None:
+        raise ValueError("cross_cell_sums: the kernel needs slots "
+                         "(offset_tables(offsets, sr, device))")
     H, W = org.shape
     R = refs_pad.shape[0]
     n_off = offsets.shape[0]
-    for name, t in (("org", org), ("refs_pad", refs_pad), ("offsets", offsets)):
+    for name, t in (("org", org), ("refs_pad", refs_pad), ("offsets", offsets),
+                    ("slots", slots)):
         if t.device != org.device or t.dtype != torch.int32 \
                 or not t.is_contiguous():
             raise ValueError(f"cross_cell_sums: {name} must be a contiguous "
                              f"int32 tensor on {org.device}")
     if H % 4 or W % 4 or refs_pad.dim() != 3 \
             or tuple(refs_pad.shape[1:]) != (H + 2 * sr, W + 2 * sr) \
-            or tuple(offsets.shape) != (n_off, 2):
+            or tuple(offsets.shape) != (n_off, 2) \
+            or tuple(slots.shape) != ((2 * sr + 1) ** 2,):
         raise ValueError("cross_cell_sums: shape mismatch "
                          f"org {tuple(org.shape)} refs_pad "
                          f"{tuple(refs_pad.shape)} offsets "
-                         f"{tuple(offsets.shape)} sr {sr}")
+                         f"{tuple(offsets.shape)} slots {tuple(slots.shape)} "
+                         f"sr {sr}")
     out = torch.empty((R, n_off, H // 4, W // 4), dtype=torch.int32,
                       device=org.device)
-    kernels.launch_cross_cells(org, refs_pad, offsets, out, sr)
+    kernels.launch_cross_cells(org, refs_pad, slots, out, sr)
     cross_cell_sums.launches += 1
     return out
 
@@ -305,13 +341,12 @@ def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
     n_off = offsets.shape[0]
     sr = int(np.abs(offsets).max())
     org = org.to(torch.int32).contiguous()
-    offs = device_const(f"offsets{hash(offsets.tobytes())}",
-                        offsets.astype(np.int32), dev)
+    offs, slots = offset_tables(offsets, sr, dev)
     dx_all = offs[:, 0].to(torch.int64)
     dy_all = offs[:, 1].to(torch.int64)
 
     refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr)).contiguous()
-    cross = cross_cell_sums(org, refs_pad, offs, sr)      # [R, n_off, cy, cx]
+    cross = cross_cell_sums(org, refs_pad, offs, sr, slots)  # [R, n_off, cy, cx]
 
     oc1, oc2 = range_cell_sums(org)
     ii1 = integral_image(refs)                            # [R, H+1, W+1]

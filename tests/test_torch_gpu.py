@@ -32,20 +32,29 @@ def _blocky_frames(n, H, W, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,W,sr,R", [(144, 176, 7, 4), (72, 88, 4, 8),
-                                      (36, 44, 2, 1)])
-def test_cross_cells_kernel_matches_plain_version(H, W, sr, R):
+@pytest.mark.parametrize("H,W,sr,R,mode", [
+    (288, 352, 7, 4, 0),          # CIF luma
+    (144, 176, 7, 4, 0),          # CIF chroma
+    (1088, 1920, 7, 4, 0),        # 1080p luma
+    (288, 352, 7, 4, 1),          # search modes 1-3: sparse offsets
+    (288, 352, 7, 4, 2),
+    (288, 352, 7, 4, 3),
+    (288, 352, 16, 4, 0),         # SR 16: dx in groups, a larger window
+    (288, 352, 7, 1, 0),          # one reference plane (no half-pel)
+    (72, 88, 4, 8, 0),            # ragged tiles
+    (36, 44, 2, 1, 0)])
+def test_cross_cells_kernel_matches_plain_version(H, W, sr, R, mode):
     """The CUDA kernel equals its plain version exactly and counts one
     launch; ragged tiles (W/4 not a multiple of 32) included."""
     _need_card()
-    rng = np.random.default_rng(H + sr)
+    rng = np.random.default_rng(H + sr + mode)
     org = torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.int32).cuda()
     refs = torch.as_tensor(rng.integers(0, 256, (R, H, W)),
                            dtype=torch.int32).cuda()
     refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr)).contiguous()
-    offs = torch.as_tensor(F.spiral_offsets(sr)).cuda()
+    offs, slots = F.offset_tables(F.candidate_offsets(sr, mode), sr, "cuda")
     before = F.cross_cell_sums.launches
-    got = F.cross_cell_sums(org, refs_pad, offs, sr)
+    got = F.cross_cell_sums(org, refs_pad, offs, sr, slots)
     torch.cuda.synchronize()
     assert F.cross_cell_sums.launches == before + 1
     assert torch.equal(got, F.cross_cell_sums_reference(org, refs_pad, offs, sr))
@@ -56,11 +65,15 @@ def test_cross_cells_rejects_bad_inputs():
     _need_card()
     org = torch.zeros((16, 16), dtype=torch.int32, device="cuda")
     refs_pad = torch.zeros((1, 20, 20), dtype=torch.int32, device="cuda")
-    offs = torch.as_tensor(F.spiral_offsets(2)).cuda()
+    offs, slots = F.offset_tables(F.spiral_offsets(2), 2, "cuda")
     with pytest.raises(ValueError):
-        F.cross_cell_sums(org.to(torch.int64), refs_pad, offs, 2)
+        F.cross_cell_sums(org.to(torch.int64), refs_pad, offs, 2, slots)
     with pytest.raises(ValueError):
-        F.cross_cell_sums(org, refs_pad, offs, 3)
+        F.cross_cell_sums(org, refs_pad, offs, 3, slots)
+    with pytest.raises(ValueError):
+        F.cross_cell_sums(org, refs_pad, offs, 2)          # no slot table
+    with pytest.raises(ValueError):
+        F.cross_cell_sums(org, refs_pad, offs, 2, slots[1:].contiguous())
 
 
 @pytest.mark.gpu

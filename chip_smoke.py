@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (h264tpu_torch) of the fractal codec on one CUDA card.
+"""Drive the PyTorch port (h264tpu_torch) on one CUDA card: the fractal codec
+and the conformant H.264 encoder.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile-dir DIR]
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -14,15 +15,25 @@ Phases, in order; any failure exits non-zero before the result line:
    reference plane, ragged tiles); each case reports the kernel's device
    time per launch (torch.profiler kernel events) and, apart from it, the
    wrapper's call time (CUDA events around back-to-back calls);
-3. the main path at full size: ``FractalCodec.encode_sequence`` of 1 I + 7 P
-   CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC) with the
-   kernel launch counters reset just before and read just after, then
-   ``FractalDecoder.decode`` of the stream, which must reproduce the encoder's
-   reconstruction exactly; per-frame PSNR and bits, steady-state P-frame fps,
-   per-stage times of one P frame, and one I + one P frame at 1920x1088;
-4. the QCIF stream encoded on the card must equal the one encoded on the CPU
-   byte for byte (the CPU path is the one the tests hold against the JAX
-   package).
+3. the fractal main path at full size: ``FractalCodec.encode_sequence`` of
+   1 I + 7 P CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC)
+   with the kernel launch counters reset just before and read just after,
+   then ``FractalDecoder.decode`` of the stream, which must reproduce the
+   encoder's reconstruction exactly; per-frame PSNR and bits, steady-state
+   P-frame fps, per-stage times of one P frame, and one I + one P frame at
+   1920x1088;
+4. the fractal QCIF stream encoded on the card must equal the one encoded on
+   the CPU byte for byte (the CPU path is the one the tests hold against the
+   JAX package);
+5. the conformant H.264 encoder (``DeviceAVCCodec``, IPPP CAVLC) at the
+   ``bench.py`` AVC settings (QP 28, SR 8, one reference): 1 IDR + 4 P CIF
+   frames in 9 slices, decoded bit-exactly by the port's ``AVCDecoder``, with
+   per-frame bits and PSNR, steady-state P fps, kbps at 30 fps, device ms per
+   stage, host ms of the packer and the deblock, and the kernel launches and
+   summed kernel time of one P frame (torch.profiler); a QCIF stream in 3
+   slices encoded on the card and on the CPU, which must be equal byte for
+   byte; and 1 IDR + 1 P 1920x1088 frames in 17 slices, encode only, with
+   the same stages and the peak device memory.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Frames are a blocky random texture made
@@ -404,6 +415,189 @@ def phase_card_vs_cpu(seed: int):
     print(f"[qcif] card stream == CPU stream ({len(s_gpu)} bytes)", flush=True)
 
 
+# bench.py bench_avc: AVCParams(w, h, qp=28, num_ref_frames=1, level_idc=42),
+# TPUAVCCodec(p, intra_period=0, search_range=8, n_slices=...)
+AVC_QP, AVC_SR = 28, 8
+
+
+def avc_codec(H: int, W: int, n_slices: int, device: str):
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=1,
+                  level_idc=42)
+    return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
+                          n_slices=n_slices, device=device)
+
+
+def avc_stages(codec, frame, ref_rec):
+    """Device ms of each stage of one P frame (CUDA events around the calls
+    ``device_enc.encode_frame`` makes), the second of two runs.  The
+    decision scan is its eager first step plus the graph replays of the
+    others; ``graph_capture`` is the interval between them, during which
+    the card waits for the host to capture the step.  ``host_enqueue`` is
+    the host clock from the first call to the return of the last, before
+    the sync: when it nears the device span, the host has no time left to
+    pack a frame while the card works."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE
+    p, sr = codec.p, codec.sr
+    y, u, v = (torch.as_tensor(pl).cuda().to(torch.int32) for pl in frame)
+    ups, us, vs = (x[None] for x in DE.prep_ref(
+        *(torch.as_tensor(pl).cuda() for pl in ref_rec), sr))
+    _, lam_me = DE.lambdas(AVC_QP)
+    force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool, device="cuda")
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        marks = []
+        t0 = time.perf_counter()
+        ev[0].record()
+        mv_int, _, pmv2 = DE._integer_search(
+            y, ups[:, 0, 0].to(torch.int32), sr, lam_me,
+            band_rows=p.mb_h // codec.n_slices)
+        ev[1].record()
+        mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me)
+        ev[2].record()
+        sym, st = DE.decide(y, u, v, ups, us, vs, mv_q.permute(2, 0, 1, 3),
+                            sad_q.permute(2, 0, 1), AVC_QP, 1, force, sr=sr,
+                            sb_h=p.mb_h // codec.n_slices, intra_only=False,
+                            marks=marks)
+        ev[3].record()
+        DE.prep_ref(*DE.assemble(sym, st, p.mb_h, p.mb_w)[0], sr)
+        ev[4].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[4].synchronize()
+    check(len(marks) == 2, "the decision scan recorded no capture marks")
+    return {"stage_a_search": ev[0].elapsed_time(ev[1]),
+            "stage_b_subpel": ev[1].elapsed_time(ev[2]),
+            "decision_scan": ev[2].elapsed_time(marks[0])
+            + marks[1].elapsed_time(ev[3]),
+            "decision_first_step": ev[2].elapsed_time(marks[0]),
+            "decision_replays": marks[1].elapsed_time(ev[3]),
+            "graph_capture": marks[0].elapsed_time(marks[1]),
+            "prep_ref": ev[3].elapsed_time(ev[4]),
+            "device_total": ev[0].elapsed_time(ev[4]),
+            "host_enqueue": host_ms}
+
+
+def avc_profile(codec, frame, ref_rec, profile_dir=None):
+    """(kernel launches, summed kernel ms) of one device P-frame encode from
+    torch.profiler's device events; summed ms is None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from h264tpu_torch.avc import device_enc as DE
+    refs = [DE.prep_ref(*(torch.as_tensor(pl).cuda() for pl in ref_rec),
+                        codec.sr)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        codec.encode_frame(frame, refs, AVC_QP)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        with open(os.path.join(profile_dir, "avc_pframe_profile_cif.txt"),
+                  "w") as f:
+            f.write(events.table(sort_by="self_device_time_total",
+                                 row_limit=40))
+    return sum(e.count for e in kernels), (dev_us / 1e3 if dev_us else None)
+
+
+def phase_avc_cif(seed: int, profile_dir=None):
+    import torch
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    H, W, n = 288, 352, 5
+    frames = blocky_frames(n, H, W, seed)
+    codec = avc_codec(H, W, 9, "cuda")
+    codec.encode_sequence(frames[:2])                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codec.encode_sequence(frames[:1])
+    torch.cuda.synchronize()
+    idr_s = time.perf_counter() - t0
+    codec.host_ms = dict(pack=[], deblock=[])
+    t0 = time.perf_counter()
+    results, stream = codec.encode_sequence(frames)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    check([r.frame_type for r in results] == ["IDR"] + ["P"] * (n - 1),
+          "unexpected AVC frame types")
+    for i, r in enumerate(results):
+        print(f"[avc cif] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f}", flush=True)
+        check(np.isfinite(r.psnr_y) and r.bits > 0, f"AVC frame {i} failed")
+    t0 = time.perf_counter()
+    decoded = AVCDecoder().decode(stream)
+    dec_s = time.perf_counter() - t0
+    check(len(decoded) == n, "AVC decoder returned a wrong frame count")
+    for i, (r, planes) in enumerate(zip(results, decoded)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"AVC decoded frame {i} plane {c} != encoder recon")
+    p_fps = (n - 1) / (seq_s - idr_s)
+    bits = [r.bits for r in results]
+    print(f"[avc cif] 1 IDR + {n - 1} P: {seq_s:.3f} s, stream {len(stream)} "
+          f"bytes; decode bit-exact with the encoder recon in {dec_s:.3f} s",
+          flush=True)
+    print(f"[avc cif] steady-state P frames {p_fps:.3f} fps (host clock, "
+          f"synchronised; (1 IDR + {n - 1} P) - (1 IDR) runs); "
+          f"{sum(bits) / n * 30 / 1e3:.3f} kbps at 30 fps over all frames, "
+          f"{np.mean(bits[1:]) * 30 / 1e3:.3f} kbps for P frames", flush=True)
+    print("[avc cif] host ms per P frame: pack "
+          f"{np.mean(codec.host_ms['pack'][1:]):.1f}, deblock "
+          f"{np.mean(codec.host_ms['deblock'][1:]):.1f}", flush=True)
+    stages = avc_stages(codec, frames[1], results[0].recon)
+    print("[avc cif] one P frame by stage, ms between CUDA events: " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    t0 = time.perf_counter()
+    launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
+                                   profile_dir)
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms:.3f} ms, busy share {dev_ms * p_fps / 1e3:.4f} of the " \
+        f"{1e3 / p_fps:.1f} ms steady-state frame"
+    print(f"[avc cif] one P frame: {launches} kernel launches, summed kernel "
+          f"time {busy} (torch.profiler, {time.perf_counter() - t0:.1f} s "
+          f"to trace)", flush=True)
+
+
+def phase_avc_card_vs_cpu(seed: int):
+    H, W = 144, 176
+    frames = blocky_frames(3, H, W, seed)
+    _, s_gpu = avc_codec(H, W, 3, "cuda").encode_sequence(frames)
+    _, s_cpu = avc_codec(H, W, 3, "cpu").encode_sequence(frames)
+    check(s_gpu == s_cpu, "AVC QCIF stream from the card != stream from the CPU")
+    print(f"[avc qcif] card stream == CPU stream ({len(s_gpu)} bytes)",
+          flush=True)
+
+
+def phase_avc_1080p(seed: int):
+    import torch
+    H, W = 1088, 1920
+    frames = blocky_frames(2, H, W, seed)
+    codec = avc_codec(H, W, 17, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, stream = codec.encode_sequence(frames)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    check([r.frame_type for r in results] == ["IDR", "P"]
+          and all(np.isfinite(r.psnr_y) for r in results),
+          "AVC 1080p encode failed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(results):
+        print(f"[avc 1080p] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f}", flush=True)
+    print(f"[avc 1080p] 1 IDR + 1 P encode {seq_s:.3f} s, stream "
+          f"{len(stream)} bytes, peak device memory {peak:.3f} GiB; host ms: "
+          f"pack {codec.host_ms['pack']}, deblock {codec.host_ms['deblock']}",
+          flush=True)
+    stages = avc_stages(codec, frames[1], results[0].recon)
+    print("[avc 1080p] one P frame by stage, ms between CUDA events: " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -416,11 +610,22 @@ def main(argv=None) -> int:
         print("chip_smoke: FAILED: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.time()
-    phase_device_and_build()
-    krows = phase_kernels(args.seed)
-    launches = phase_main_path(args.seed, args.profile_dir)
-    launches_1080p = phase_1080p(args.seed)
-    phase_card_vs_cpu(args.seed)
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        print(f"[phase] {name}: {time.time() - t0:.1f} s", flush=True)
+        return out
+
+    timed("device and build", phase_device_and_build)
+    krows = timed("kernels", phase_kernels, args.seed)
+    launches = timed("fractal cif", phase_main_path, args.seed,
+                     args.profile_dir)
+    launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
+    timed("fractal qcif card vs cpu", phase_card_vs_cpu, args.seed)
+    timed("avc cif", phase_avc_cif, args.seed, args.profile_dir)
+    timed("avc qcif card vs cpu", phase_avc_card_vs_cpu, args.seed)
+    timed("avc 1080p", phase_avc_1080p, args.seed)
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",

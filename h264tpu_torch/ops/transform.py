@@ -14,6 +14,13 @@ import torch
 
 from .. import device_const
 
+# Forward core matrix Cf (H.264 spec 8.6.2); ``_fwd_stage`` is its butterfly.
+CF = np.array(
+    [[1, 1, 1, 1],
+     [2, 1, -1, -2],
+     [1, -1, -1, 1],
+     [1, -2, 2, -1]], dtype=np.int32)
+
 # Quantization multiplier table MF[qp%6][i][j] (FR/src/block.c:60).
 QUANT_COEF = np.array([
     [[13107, 8066, 13107, 8066], [8066, 5243, 8066, 5243],

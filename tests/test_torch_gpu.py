@@ -90,3 +90,36 @@ def test_card_stream_equals_cpu_stream_and_decodes():
     for r, planes in zip(res, FractalDecoder(device="cuda").decode(s_gpu)):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
+
+
+def _avc_codec(H, W, n_slices, device):
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.params import AVCParams
+    p = AVCParams(width=W, height=H, qp=28, num_ref_frames=1, level_idc=42)
+    return DeviceAVCCodec(p, intra_period=0, search_range=8,
+                          n_slices=n_slices, device=device)
+
+
+@pytest.mark.gpu
+def test_avc_card_stream_equals_cpu_stream():
+    """The conformant encoder's QCIF stream (3 slices) from the card equals
+    the CPU's, which the CPU tests hold against the JAX package."""
+    _need_card()
+    frames = _blocky_frames(3, 144, 176)
+    _, s_cpu = _avc_codec(144, 176, 3, "cpu").encode_sequence(frames)
+    _, s_gpu = _avc_codec(144, 176, 3, "cuda").encode_sequence(frames)
+    assert s_gpu == s_cpu
+
+
+@pytest.mark.gpu
+def test_avc_card_cif_stream_decodes_to_recon():
+    """A CIF IDR + P + P stream in 9 slices from the card decodes with the
+    port's AVCDecoder to the encoder's reconstruction."""
+    _need_card()
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    frames = _blocky_frames(3, 288, 352)
+    res, stream = _avc_codec(288, 352, 9, "cuda").encode_sequence(frames)
+    assert [r.frame_type for r in res] == ["IDR", "P", "P"]
+    for r, planes in zip(res, AVCDecoder().decode(stream)):
+        for a, b in zip(r.recon, planes):
+            np.testing.assert_array_equal(a, b)

@@ -33,11 +33,24 @@ Phases, in order; any failure exits non-zero before the result line:
    summed kernel time of one P frame (torch.profiler); a QCIF stream in 3
    slices encoded on the card and on the CPU, which must be equal byte for
    byte; and 1 IDR + 1 P 1920x1088 frames in 17 slices, encode only, with
-   the same stages and the peak device memory.
+   the same stages and the peak device memory;
+6. the encoder's High-profile P path at the ``tools/bdrate.py``
+   configuration (High, per-MB 8x8 transform, P_8x8 sub-partitions, QP 28,
+   SR 8, one reference, one slice): 1 IDR + 4 P CIF frames decoded
+   bit-exactly, per-frame counts of 8x8-transform and sub-partitioned MBs
+   (both must occur), stages, host ms, fps, launches and summed kernel
+   time of one P frame; QCIF in 3 slices on the card and on the CPU, equal
+   byte for byte, with (i) 8x8 + sub-8x8 + default scaling lists and (ii)
+   the 8x8 transform alone (packed by the C packer); 1 IDR + 1 P 1080p in
+   17 slices, encode only, with stages and peak device memory;
+7. the native host stages (``csrc/avc_native.cpp``, built with g++ in phase
+   1) against their numpy twins on frames of phases 5 and 6: equal planes
+   and bytes, with both times.
 
 The line before the last is a JSON ``kernels`` record; the last line is
-``{"ok": true, "device": {...}}``.  Frames are a blocky random texture made
-from ``--seed``, shifted per frame.
+``{"ok": true, "device": {...}}``.  Frames are made from ``--seed``: a
+blocky random texture shifted per frame, and for the High phases a smooth
+one with noise whose motion varies inside an 8x8.
 """
 
 from __future__ import annotations
@@ -79,6 +92,29 @@ def blocky_frames(n: int, H: int, W: int, seed: int):
                     .astype(np.uint8))
     return [tuple(np.roll(p, (i % 3, -(i % 3)), axis=(0, 1)) for p in base)
             for i in range(n)]
+
+
+def smooth_frames(n: int, H: int, W: int, seed: int):
+    """A smooth random texture moving (2, 3) pels a frame with noise, as
+    ``tests/test_torch_avc_high.py`` makes it: its motion varies inside an
+    8x8, so the High phases' sub-8x8 partitions and 8x8 transform both get
+    chosen."""
+    rng = np.random.default_rng(seed)
+    big = rng.normal(0, 1, (H + 3 * n, W + 3 * n))
+    for _ in range(3):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, -1, 0)
+               + np.roll(big, 1, 1) + np.roll(big, -1, 1)) / 5
+    big = 128 + big / big.std() * 50
+    out = []
+    for i in range(n):
+        y = np.clip(big[3 * i:3 * i + H, 2 * i:2 * i + W]
+                    + rng.normal(0, 6, (H, W)), 0, 255).astype(np.uint8)
+        u = np.clip(y[::2, ::2] * 0.5 + 60 + rng.normal(0, 3, (H // 2, W // 2)),
+                    0, 255).astype(np.uint8)
+        v = np.clip(255 - y[1::2, 1::2] * 0.6
+                    + rng.normal(0, 3, (H // 2, W // 2)), 0, 255).astype(np.uint8)
+        out.append((y, u, v))
+    return out
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -133,6 +169,12 @@ def phase_device_and_build():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     from h264tpu_torch import kernels
+    from h264tpu_torch.avc import native as AN
+    t0 = time.time()
+    AN.build()
+    AN._load()
+    print(f"[build] native host stages {AN.library_path().name} built and "
+          f"loaded in {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     logs = kernels.build_all()
     print(f"[build] {len(logs)} kernel source(s) compiled in "
@@ -420,13 +462,69 @@ def phase_card_vs_cpu(seed: int):
 AVC_QP, AVC_SR = 28, 8
 
 
-def avc_codec(H: int, W: int, n_slices: int, device: str):
+def avc_codec(H: int, W: int, n_slices: int, device: str,
+              high: dict = None):
+    """``bench_avc``'s encoder, or with ``high`` (AVCParams fields plus
+    ``sub8x8``) the High-profile one of ``tools/bdrate.py`` run_ours:
+    AVCParams(profile_idc=100, transform_8x8=True, num_ref_frames=1),
+    TPUAVCCodec(search_range=8, sub8x8=True)."""
     from h264tpu_torch.avc.params import AVCParams
     from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    if high is None:
+        p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=1,
+                      level_idc=42)
+        return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
+                              n_slices=n_slices, device=device)
+    high = dict(high)
+    sub8x8 = high.pop("sub8x8", False)
     p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=1,
-                  level_idc=42)
+                  profile_idc=100, **high)
     return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
-                          n_slices=n_slices, device=device)
+                          n_slices=n_slices, sub8x8=sub8x8, device=device)
+
+
+HIGH_BDRATE = dict(transform_8x8=True, sub8x8=True)
+
+
+class HostStageRecorder:
+    """Records, inside ``with``, every call of the native host stages and
+    the host symbols of each frame that ``DeviceAVCCodec`` makes (their
+    arguments and outputs), for the comparison with the numpy twins."""
+
+    def __enter__(self):
+        from h264tpu_torch.avc import native as AN, device_codec as DC
+        self.packs, self.deblocks, self.syms = [], [], []
+        self._saved = pack, deblock, host_symbols = (
+            AN.pack_slice, AN.deblock_frame, DC.host_symbols)
+
+        def rec_pack(*a, **k):
+            out = pack(*a, **k)
+            self.packs.append((a, k, out))
+            return out
+
+        def rec_deblock(*a):
+            out = deblock(*a)
+            self.deblocks.append((a, out))
+            return out
+
+        def rec_syms(sym):
+            out = host_symbols(sym)
+            self.syms.append(out)
+            return out
+
+        AN.pack_slice, AN.deblock_frame, DC.host_symbols = (
+            rec_pack, rec_deblock, rec_syms)
+        return self
+
+    def __exit__(self, *exc):
+        from h264tpu_torch.avc import native as AN, device_codec as DC
+        AN.pack_slice, AN.deblock_frame, DC.host_symbols = self._saved
+
+    def frame(self, i: int):
+        """(deblock call, native pack calls) of frame ``i``."""
+        sym = self.syms[i]
+        return (self.deblocks[i],
+                [c for c in self.packs if c[0][0] is sym])
 
 
 def avc_stages(codec, frame, ref_rec):
@@ -441,6 +539,8 @@ def avc_stages(codec, frame, ref_rec):
     import torch
     from h264tpu_torch.avc import device_enc as DE
     p, sr = codec.p, codec.sr
+    opts = dict(transform8=p.transform_8x8, sub8x8=codec.sub8x8,
+                scaling_default=p.scaling_matrix == "default")
     y, u, v = (torch.as_tensor(pl).cuda().to(torch.int32) for pl in frame)
     ups, us, vs = (x[None] for x in DE.prep_ref(
         *(torch.as_tensor(pl).cuda() for pl in ref_rec), sr))
@@ -453,14 +553,15 @@ def avc_stages(codec, frame, ref_rec):
         ev[0].record()
         mv_int, _, pmv2 = DE._integer_search(
             y, ups[:, 0, 0].to(torch.int32), sr, lam_me,
-            band_rows=p.mb_h // codec.n_slices)
+            band_rows=p.mb_h // codec.n_slices, sub8x8=codec.sub8x8)
         ev[1].record()
-        mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me)
+        mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me,
+                                        sub8x8=codec.sub8x8)
         ev[2].record()
         sym, st = DE.decide(y, u, v, ups, us, vs, mv_q.permute(2, 0, 1, 3),
                             sad_q.permute(2, 0, 1), AVC_QP, 1, force, sr=sr,
                             sb_h=p.mb_h // codec.n_slices, intra_only=False,
-                            marks=marks)
+                            marks=marks, **opts)
         ev[3].record()
         DE.prep_ref(*DE.assemble(sym, st, p.mb_h, p.mb_w)[0], sr)
         ev[4].record()
@@ -518,10 +619,11 @@ def phase_avc_cif(seed: int, profile_dir=None):
     torch.cuda.synchronize()
     idr_s = time.perf_counter() - t0
     codec.host_ms = dict(pack=[], deblock=[])
-    t0 = time.perf_counter()
-    results, stream = codec.encode_sequence(frames)
-    torch.cuda.synchronize()
-    seq_s = time.perf_counter() - t0
+    with HostStageRecorder() as rec:
+        t0 = time.perf_counter()
+        results, stream = codec.encode_sequence(frames)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
     check([r.frame_type for r in results] == ["IDR"] + ["P"] * (n - 1),
           "unexpected AVC frame types")
     for i, r in enumerate(results):
@@ -560,6 +662,7 @@ def phase_avc_cif(seed: int, profile_dir=None):
     print(f"[avc cif] one P frame: {launches} kernel launches, summed kernel "
           f"time {busy} (torch.profiler, {time.perf_counter() - t0:.1f} s "
           f"to trace)", flush=True)
+    return rec
 
 
 def phase_avc_card_vs_cpu(seed: int):
@@ -598,6 +701,196 @@ def phase_avc_1080p(seed: int):
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
 
 
+def mb_counts(sym):
+    """(MBs with the 8x8 transform, sub-partitioned P_8x8 MBs) of a frame's
+    host symbols."""
+    t8 = int(np.asarray(sym["t8"]).sum()) if "t8" in sym else 0
+    sub = 0
+    if "sub" in sym:
+        sub = int(((np.asarray(sym["win"]) == 7)
+                   & (np.asarray(sym["sub"]) > 0).any(-1)).sum())
+    return t8, sub
+
+
+def phase_avc_high_cif(seed: int, profile_dir=None):
+    """The tools/bdrate.py configuration at CIF, one slice, uncut."""
+    import torch
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    H, W, n = 288, 352, 5
+    frames = smooth_frames(n, H, W, seed)
+    codec = avc_codec(H, W, 1, "cuda", HIGH_BDRATE)
+    codec.encode_sequence(frames[:2])                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codec.encode_sequence(frames[:1])
+    torch.cuda.synchronize()
+    idr_s = time.perf_counter() - t0
+    codec.host_ms = dict(pack=[], deblock=[])
+    with HostStageRecorder() as rec:
+        t0 = time.perf_counter()
+        results, stream = codec.encode_sequence(frames)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    check([r.frame_type for r in results] == ["IDR"] + ["P"] * (n - 1),
+          "unexpected AVC High frame types")
+    counts = [mb_counts(s) for s in rec.syms]
+    for i, (r, (t8, sub)) in enumerate(zip(results, counts)):
+        print(f"[avc high cif] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f} t8 MBs {t8} sub-partitioned P8x8 "
+              f"MBs {sub}", flush=True)
+        check(np.isfinite(r.psnr_y) and r.bits > 0,
+              f"AVC High frame {i} failed")
+    check(any(t8 > 0 for t8, _ in counts[1:]),
+          "no P frame chose the 8x8 transform")
+    check(any(sub > 0 for _, sub in counts[1:]),
+          "no P frame chose a sub-partitioned P8x8")
+    t0 = time.perf_counter()
+    decoded = AVCDecoder().decode(stream)
+    dec_s = time.perf_counter() - t0
+    check(len(decoded) == n, "AVC High decoder returned a wrong frame count")
+    for i, (r, planes) in enumerate(zip(results, decoded)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"AVC High decoded frame {i} plane {c} != encoder recon")
+    p_fps = (n - 1) / (seq_s - idr_s)
+    bits = [r.bits for r in results]
+    print(f"[avc high cif] 1 IDR + {n - 1} P: {seq_s:.3f} s, stream "
+          f"{len(stream)} bytes; decode bit-exact with the encoder recon in "
+          f"{dec_s:.3f} s", flush=True)
+    print(f"[avc high cif] steady-state P frames {p_fps:.3f} fps (host "
+          f"clock, synchronised; (1 IDR + {n - 1} P) - (1 IDR) runs); "
+          f"{sum(bits) / n * 30 / 1e3:.3f} kbps at 30 fps over all frames",
+          flush=True)
+    print("[avc high cif] host ms per P frame: pack (numpy: sub-8x8) "
+          f"{np.mean(codec.host_ms['pack'][1:]):.1f}, native deblock "
+          f"{np.mean(codec.host_ms['deblock'][1:]):.1f}; IDR: native pack "
+          f"{codec.host_ms['pack'][0]:.1f}, native deblock "
+          f"{codec.host_ms['deblock'][0]:.1f}", flush=True)
+    stages = avc_stages(codec, frames[1], results[0].recon)
+    print("[avc high cif] one P frame by stage, ms between CUDA events: "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+    t0 = time.perf_counter()
+    launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
+                                   profile_dir)
+    busy = "not measured" if dev_ms is None else \
+        f"{dev_ms:.3f} ms, busy share {dev_ms * p_fps / 1e3:.4f} of the " \
+        f"{1e3 / p_fps:.1f} ms steady-state frame"
+    print(f"[avc high cif] one P frame: {launches} kernel launches, summed "
+          f"kernel time {busy} (torch.profiler, "
+          f"{time.perf_counter() - t0:.1f} s to trace)", flush=True)
+    return rec
+
+
+# the two High QCIF configurations: (i) every option of the slice; (ii) the
+# 8x8 transform alone, whose P slices the C packer writes
+HIGH_QCIF = {"i": dict(transform_8x8=True, sub8x8=True,
+                       scaling_matrix="default"),
+             "ii": dict(transform_8x8=True)}
+
+
+def phase_avc_high_card_vs_cpu(seed: int):
+    import torch
+    H, W = 144, 176
+    frames = smooth_frames(3, H, W, seed)
+    recs = {}
+    for name, high in HIGH_QCIF.items():
+        with HostStageRecorder() as rec:
+            res, s_gpu = avc_codec(H, W, 3, "cuda", high).encode_sequence(
+                frames)
+            torch.cuda.synchronize()
+        _, s_cpu = avc_codec(H, W, 3, "cpu", high).encode_sequence(frames)
+        check(s_gpu == s_cpu, f"AVC High QCIF ({name}) stream from the card "
+              "!= stream from the CPU")
+        counts = [mb_counts(sy) for sy in rec.syms]
+        print(f"[avc high qcif {name}] card stream == CPU stream "
+              f"({len(s_gpu)} bytes); bits {[r.bits for r in res]}; (t8, "
+              f"sub-partitioned) MBs per frame {counts}", flush=True)
+        recs[name] = rec
+    return recs
+
+
+def phase_avc_high_1080p(seed: int):
+    import torch
+    H, W = 1088, 1920
+    frames = smooth_frames(2, H, W, seed)
+    codec = avc_codec(H, W, 17, "cuda", dict(HIGH_BDRATE, level_idc=42))
+    torch.cuda.reset_peak_memory_stats()
+    with HostStageRecorder() as rec:
+        t0 = time.perf_counter()
+        results, stream = codec.encode_sequence(frames)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    check([r.frame_type for r in results] == ["IDR", "P"]
+          and all(np.isfinite(r.psnr_y) for r in results),
+          "AVC High 1080p encode failed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (r, (t8, sub)) in enumerate(zip(results,
+                                           map(mb_counts, rec.syms))):
+        print(f"[avc high 1080p] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f} t8 MBs {t8} sub-partitioned P8x8 MBs "
+              f"{sub}", flush=True)
+    print(f"[avc high 1080p] 1 IDR + 1 P encode {seq_s:.3f} s, stream "
+          f"{len(stream)} bytes, peak device memory {peak:.3f} GiB; host ms: "
+          f"pack {[round(x, 1) for x in codec.host_ms['pack']]}, native "
+          f"deblock {[round(x, 1) for x in codec.host_ms['deblock']]}",
+          flush=True)
+    stages = avc_stages(codec, frames[1], results[0].recon)
+    print("[avc high 1080p] one P frame by stage, ms between CUDA events: "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+
+
+def host_ms(fn, reps: int = 3) -> tuple:
+    """(output of the first call, least host ms of ``reps`` calls)."""
+    out, best = None, float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        y = fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+        out = y if out is None else out
+    return out, best
+
+
+def phase_native_vs_twin(cases):
+    """The native deblock, and the native packer wherever it ran, against
+    their numpy twins on recorded frames: equal planes and bytes."""
+    from h264tpu_torch.avc import native as AN, pack as PK
+    from h264tpu_torch.avc.deblock import deblock_frame
+    from h264tpu_torch.avc.params import SLICE_I
+    for label, rec, i in cases:
+        (args, out), packs = rec.frame(i)
+        nat, nat_ms = host_ms(lambda: AN.deblock_frame(*args))
+        twin, twin_ms = host_ms(lambda: deblock_frame(*args), 1)
+        for a, b, c in zip(out, nat, twin):
+            check(np.array_equal(a, b) and np.array_equal(a, c),
+                  f"native deblock != numpy deblock on {label}")
+        msg = (f"deblock equal, native {nat_ms:.2f} ms vs numpy "
+               f"{twin_ms:.1f} ms")
+        if packs:
+            def numpy_pack():
+                outs = []
+                for (sym, p, st, qp, fn, idr, pic_id, nref), kw, _ in packs:
+                    if st == SLICE_I:
+                        outs.append(PK.pack_i_slice(
+                            sym, p, qp, frame_num=fn, idr=idr,
+                            idr_pic_id=pic_id, **kw))
+                    else:
+                        outs.append(PK.pack_p_slice(
+                            sym, p, qp, frame_num=fn, num_ref=nref, **kw))
+                return outs
+            nat, nat_ms = host_ms(lambda: [AN.pack_slice(*a, **k)
+                                           for a, k, _ in packs])
+            twin, twin_ms = host_ms(numpy_pack, 1)
+            check([o for _, _, o in packs] == nat == twin,
+                  f"native pack != numpy pack on {label}")
+            msg += (f"; {len(packs)} slice(s) packed equal, native "
+                    f"{nat_ms:.2f} ms vs numpy {twin_ms:.1f} ms")
+        else:
+            msg += "; packed by the numpy packer on the main path (sub-8x8)"
+        print(f"[native vs twin] {label}: {msg}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -623,9 +916,19 @@ def main(argv=None) -> int:
                      args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
     timed("fractal qcif card vs cpu", phase_card_vs_cpu, args.seed)
-    timed("avc cif", phase_avc_cif, args.seed, args.profile_dir)
+    rec_cif = timed("avc cif", phase_avc_cif, args.seed, args.profile_dir)
     timed("avc qcif card vs cpu", phase_avc_card_vs_cpu, args.seed)
     timed("avc 1080p", phase_avc_1080p, args.seed)
+    rec_high = timed("avc high cif", phase_avc_high_cif, args.seed,
+                     args.profile_dir)
+    rec_qcif = timed("avc high qcif card vs cpu", phase_avc_high_card_vs_cpu,
+                     args.seed)
+    timed("avc high 1080p", phase_avc_high_1080p, args.seed)
+    timed("native vs twin", phase_native_vs_twin, [
+        ("avc cif last P", rec_cif, -1), ("avc high cif IDR", rec_high, 0),
+        ("avc high cif last P", rec_high, -1),
+        ("avc high qcif (ii) P 1", rec_qcif["ii"], 1),
+        ("avc high qcif (ii) P 2", rec_qcif["ii"], 2)])
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",

@@ -2,17 +2,21 @@
 
 Port of the IPPP branch of ``h264tpu/avc/tpu_codec.py`` ``TPUAVCCodec``:
 every frame's decisions and residuals come from ``avc/device_enc.py`` on the
-device; the host packs the CAVLC slices (``avc/pack.py``), applies the spec
-deblocking filter (``avc/deblock.py``) and assembles the Annex-B stream.
+device; the host packs the CAVLC slices and applies the spec deblocking
+filter with the native C++ stages (``avc/native.py``), and assembles the
+Annex-B stream.  As in ``TPUAVCCodec``, P slices with P_8x8 sub-partitions
+are packed by the numpy packer (``avc/pack.py``): the C packer has no
+``sub_mb_type``.
 Reference pictures stay on the device as phase-split quarter-pel planes.
 A frame's symbols come to the host at the same sync as its reconstruction,
 which the deblock needs before the next frame can start; its slices are
 packed after the next frame's device work has been queued.
 
-Ported: IPPP with periodic IDR, CAVLC, the 4x4 transform, full-RD mode
-decision with adaptive rounding and RD-gated decimation, row-band slices,
-multiple reference frames.  The other options of ``TPUAVCCodec`` raise
-``NotImplementedError``.
+Ported: IPPP with periodic IDR, CAVLC, full-RD mode decision with adaptive
+rounding and RD-gated decimation, row-band slices, multiple reference
+frames, and High profile's per-MB 8x8 transform, P_8x8 sub-partitions
+(``sub8x8``) and the spec default scaling lists.  The other options of
+``TPUAVCCodec`` raise ``NotImplementedError``.
 
 Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 """
@@ -28,9 +32,10 @@ import torch
 from .. import resolve_device
 from . import conformance
 from . import device_enc as DE
+from . import native as AN
 from . import pack as PK
-from .deblock import DeblockContext, deblock_frame
-from .params import AVCParams, assemble_stream
+from .deblock import DeblockContext
+from .params import AVCParams, assemble_stream, SLICE_I, SLICE_P
 
 
 @dataclasses.dataclass
@@ -41,24 +46,26 @@ class AVCFrameResult:
     recon: tuple          # (Y, U, V) uint8
 
 
-# symbol fields of the ported path and their per-MB widths, as
-# TPUAVCCodec transfers them
+# symbol fields and their per-MB widths, as TPUAVCCodec transfers them; the
+# last three come only from the options that make them (t8: the 8x8
+# transform, sub/mvd_s: sub-8x8 partitions)
 _SYM_KEYS = (("win", 1), ("ri", 1), ("mvd", 8), ("i4flags", 32),
              ("i16mode", 1), ("i16dc", 16), ("cmode", 1), ("cbp_luma", 1),
              ("cbp_chroma", 1), ("zz", 256), ("cdc", 8), ("cac", 120),
-             ("mb_intra", 1))
+             ("mb_intra", 1), ("t8", 1), ("sub", 4), ("mvd_s", 32))
 _SYM_SHAPES = {"mvd": (4, 2), "i4flags": (16, 2), "zz": (16, 16),
-               "cdc": (2, 4), "cac": (2, 2, 2, 15)}
+               "cdc": (2, 4), "cac": (2, 2, 2, 15), "mvd_s": (4, 4, 2)}
 
 
 def host_symbols(sym: dict) -> dict:
     """Device symbols -> the host arrays the packer reads: int16 of the
     shapes ``tpu_codec._unpack_sym`` gives, in one transfer."""
     nmb = sym["win"].shape[0]
+    keys = [(k, w) for k, w in _SYM_KEYS if k in sym]
     flat = torch.cat([sym[k].reshape(nmb, -1).to(torch.int16)
-                      for k, w in _SYM_KEYS], 1).cpu().numpy()
+                      for k, w in keys], 1).cpu().numpy()
     out, off = {}, 0
-    for k, w in _SYM_KEYS:
+    for k, w in keys:
         a = flat[:, off:off + w]
         off += w
         out[k] = a[:, 0] if w == 1 else \
@@ -72,13 +79,37 @@ def host_context(ctx: dict, rec) -> tuple:
     out = dict(nnz=ctx["nnz"].to(torch.int16).cpu().numpy(),
                mv=ctx["mv"].to(torch.int16).cpu().numpy(),
                ref=ctx["ref"].to(torch.int16).cpu().numpy(),
-               mb_intra=ctx["mb_intra"].cpu().numpy().astype(bool))
+               mb_intra=ctx["mb_intra"].cpu().numpy().astype(bool),
+               t8=(ctx["t8"].cpu().numpy().astype(bool) if "t8" in ctx
+                   else np.zeros(ctx["mb_intra"].shape, bool)))
     return out, tuple(pl.to(torch.uint8).cpu().numpy().astype(np.int64)
                       for pl in rec)
 
 
+def deblock_context(ctx_np: dict, mb_h: int, mb_w: int, qp: int,
+                    chroma_qp_offset: int, idr: bool) -> DeblockContext:
+    """The deblocking context of a frame from its host ``ctx``, as
+    ``TPUAVCCodec`` builds it: inter state for P frames, and for 8x8-
+    transform MBs the four 4x4 counts of each 8x8 summed over its cells
+    (bS tests the 8x8 block's coded status; internal 4x4 edges skip)."""
+    ctx = DeblockContext(mb_w, mb_h, qp, chroma_qp_offset)
+    if not idr:
+        ctx.mb_intra = ctx_np["mb_intra"]
+        ctx.nnz = np.asarray(ctx_np["nnz"], np.int64)
+        ctx.mv = np.asarray(ctx_np["mv"], np.int64)
+        ctx.ref = np.asarray(ctx_np["ref"], np.int64)
+    t8 = ctx_np["t8"]
+    if t8.any():
+        ctx.transform8 = t8
+        q = ctx.nnz.reshape(mb_h * 2, 2, mb_w * 2, 2).sum(axis=(1, 3))
+        q = np.repeat(np.repeat(q, 2, 0), 2, 1)
+        m8 = np.repeat(np.repeat(t8, 4, 0), 4, 1)
+        ctx.nnz = np.where(m8, q, ctx.nnz)
+    return ctx
+
+
 class DeviceAVCCodec:
-    """Baseline/CAVLC H.264 encoder with all pixel work on one device."""
+    """Baseline/High CAVLC H.264 encoder with all pixel work on one device."""
 
     def __init__(self, p: AVCParams, intra_period: int = 0,
                  search_range: int = 16, n_slices: int = 1, mesh=None, bframes: int = 0,
@@ -90,15 +121,18 @@ class DeviceAVCCodec:
         PyTorch path on the host."""
         unported = [
             ("CABAC", p.cabac), ("B frames", bframes > 0 or hierarchical),
-            ("the 8x8 transform", p.transform_8x8),
-            ("sub-8x8 partitions", sub8x8),
             ("weighted prediction", p.weighted_pred),
             ("a device mesh", mesh is not None),
-            ("data partitioning", data_partitioning),
-            ("scaling lists", p.scaling_matrix is not None)]
+            ("data partitioning", data_partitioning)]
         for what, asked in unported:
             if asked:
                 raise NotImplementedError(f"{what} is not ported")
+        if p.scaling_matrix is not None:
+            if p.scaling_matrix != "default":
+                raise NotImplementedError("only the spec default "
+                                          "matrices are supported")
+            if p.profile_idc < 100:
+                raise ValueError("scaling lists need High profile")
         if p.slice_groups != 1:
             raise ValueError("the device path has no FMO")
         if p.mb_h % n_slices:
@@ -108,6 +142,7 @@ class DeviceAVCCodec:
         self.intra_period = intra_period
         self.sr = search_range
         self.n_slices = n_slices
+        self.sub8x8 = sub8x8
         conformance.check_params(p)
         self._dummy = None
         # host milliseconds per frame of the slice packer and the deblock
@@ -143,7 +178,9 @@ class DeviceAVCCodec:
             force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
                                 device=self.device)
         kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
-                  chroma_qp_offset=p.chroma_qp_offset)
+                  chroma_qp_offset=p.chroma_qp_offset,
+                  transform8=p.transform_8x8, sub8x8=self.sub8x8,
+                  scaling_default=p.scaling_matrix == "default")
         if not refs:
             return DE.encode_frame(y, u, v, *self._dummy_refs(), qp, 0, force,
                                    intra_only=True, **kw)
@@ -173,15 +210,22 @@ class DeviceAVCCodec:
             t0 = time.perf_counter()
             sym = pend["sym"]
             if pend["idr"]:
-                rbsps = [PK.pack_i_slice(sym, p, qp, frame_num=0, idr=True,
-                                         idr_pic_id=pend["idr_pic_id"],
-                                         row0=s * rows, n_rows=rows)
+                rbsps = [AN.pack_slice(sym, p, SLICE_I, qp, 0, True,
+                                       pend["idr_pic_id"], 1,
+                                       row0=s * rows, n_rows=rows)
                          for s in range(self.n_slices)]
-            else:
+            elif self.sub8x8:
+                # the C packer has no sub_mb_type
                 rbsps = [PK.pack_p_slice(sym, p, qp,
                                          frame_num=pend["frame_num"],
                                          num_ref=pend["n_valid"],
                                          row0=s * rows, n_rows=rows)
+                         for s in range(self.n_slices)]
+            else:
+                rbsps = [AN.pack_slice(sym, p, SLICE_P, qp,
+                                       pend["frame_num"], False, 0,
+                                       pend["n_valid"],
+                                       row0=s * rows, n_rows=rows)
                          for s in range(self.n_slices)]
             self.host_ms["pack"].append((time.perf_counter() - t0) * 1e3)
             slices.extend((pend["idr"], rb) for rb in rbsps)
@@ -217,13 +261,9 @@ class DeviceAVCCodec:
             ctx_np, rec_np = host_context(tctx, rec)
             if p.deblock:
                 t0 = time.perf_counter()
-                ctx = DeblockContext(mb_w, mb_h, qp, p.chroma_qp_offset)
-                if not idr:
-                    ctx.mb_intra = ctx_np["mb_intra"]
-                    ctx.nnz = np.asarray(ctx_np["nnz"], np.int64)
-                    ctx.mv = np.asarray(ctx_np["mv"], np.int64)
-                    ctx.ref = np.asarray(ctx_np["ref"], np.int64)
-                rec_np = deblock_frame(*rec_np, ctx)
+                ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
+                                      p.chroma_qp_offset, idr)
+                rec_np = AN.deblock_frame(*rec_np, ctx)
                 self.host_ms["deblock"].append((time.perf_counter() - t0) * 1e3)
             rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
             dpb.insert(0, DE.prep_ref(*(torch.as_tensor(pl).to(self.device)

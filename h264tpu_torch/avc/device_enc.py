@@ -1,12 +1,14 @@
-"""Conformant H.264 frame encoder on tensors (IPPP, CAVLC, 4x4 transform).
+"""Conformant H.264 frame encoder on tensors (IPPP, CAVLC, High-profile P).
 
 Port of the P/I path of ``h264tpu/avc/tpu_enc.py``: the whole per-frame
 decision process — integer motion search over the candidate lattice (Stage
 A), quarter-pel refinement (Stage B), and the wavefront decision scan with
 full-RD mode decision, intra 4x4/16x16/chroma prediction, residual coding and
 reconstruction — runs as tensor ops on one device; only the bit packing stays
-on the host (``avc/pack.py``), consuming the per-MB symbol arrays emitted
-here.
+on the host (``avc/pack.py``, ``avc/native.py``), consuming the per-MB symbol
+arrays emitted here.  High profile adds the per-MB 8x8 transform with its RD
+choice (``transform8``), P_8x8 sub-partitions 8x4/4x8/4x4 (``sub8x8``) and
+the spec default scaling lists (``scaling_default``).
 
 Layout differs from the JAX package where that changes no result:
 
@@ -36,6 +38,8 @@ from .. import device_const
 from ..ops.me import sixtap_phases, edge_pad
 from ..ops.transform import COEFF_COST
 from . import quant_dev as Q
+from . import quant8_dev as Q8
+from . import qmatrix as QM
 from . import intra_dev as IP
 from . import cavlc_dev as CD
 from .cavlc_dev import bitlen
@@ -59,6 +63,25 @@ MODE_TAGS = (("none",), ("16x8_top", "16x8_bot"),
              ("8x16_left", "8x16_right"), ("none",) * 4)
 MODE_HDR_BITS = (1, 3, 3, 9)                # mb_type ue (+ 4x sub_mb_type)
 SLOTS4 = tuple((cy * 2, cx * 2, ch * 2, cw * 2) for (cy, cx, ch, cw) in SLOTS)
+# with sub8x8: 8 sub-partition slots per 8x8 cell in z-order, in 4x4-cell
+# units (cy4, cx4, h4, w4) — [8x4 top, 8x4 bottom, 4x8 left, 4x8 right,
+# 4x4 x4] — for P_8x8 sub_mb_types 1/2/3 (spec Table 7-14)
+SUB_SLOTS4 = tuple(
+    s for cy, cx in ((0, 0), (0, 1), (1, 0), (1, 1))
+    for s in ((2 * cy, 2 * cx, 1, 2), (2 * cy + 1, 2 * cx, 1, 2),
+              (2 * cy, 2 * cx, 2, 1), (2 * cy, 2 * cx + 1, 2, 1),
+              (2 * cy, 2 * cx, 1, 1), (2 * cy, 2 * cx + 1, 1, 1),
+              (2 * cy + 1, 2 * cx, 1, 1), (2 * cy + 1, 2 * cx + 1, 1, 1)))
+# per-cell local slot offsets of each sub_mb_type (0 = 8x8 uses the MB-level
+# slot 5+c; 1..3 use slot 9 + 8*c + offset), and ue(sub_mb_type) lengths
+SUB_OPT_LOCAL = ((None,), (0, 1), (2, 3), (4, 5, 6, 7))
+SUB_HDR_BITS = (1, 3, 3, 5)
+
+
+def slot_geometry(sub8x8: bool) -> tuple:
+    """The (cy4, cx4, h4, w4) slots Stages A and B search: 9, or 41 with
+    the sub-partition slots."""
+    return SLOTS4 + (SUB_SLOTS4 if sub8x8 else ())
 
 _SCAN = np.asarray(BLOCK_SCAN, np.int64)
 _SCANY, _SCANX = _SCAN[:, 0], _SCAN[:, 1]
@@ -187,23 +210,25 @@ def _offsets(sr: int) -> np.ndarray:
                      for dx in range(-sr, sr + 1)], np.int64)
 
 
-def _slot_sads(cells: torch.Tensor, mb_h: int, mb_w: int) -> torch.Tensor:
-    """[..., n4y, n4x] 4x4-cell SADs -> [..., 9, nmb] partition SADs."""
+def _slot_sads(cells: torch.Tensor, mb_h: int, mb_w: int,
+               slots4: tuple) -> torch.Tensor:
+    """[..., n4y, n4x] 4x4-cell SADs -> [..., ns, nmb] partition SADs."""
     lead = cells.shape[:-2]
     c = cells.reshape(*lead, mb_h, 4, mb_w, 4).transpose(-3, -2)
     c = c.reshape(*lead, mb_h * mb_w, 4, 4)
     return torch.stack([c[..., cy:cy + ch, cx:cx + cw].sum((-1, -2),
                                                           dtype=torch.int32)
-                        for (cy, cx, ch, cw) in SLOTS4], dim=-2)
+                        for (cy, cx, ch, cw) in slots4], dim=-2)
 
 
 def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
-                    band_rows: int = None):
-    """Integer-pel search for the 9 partition slots of every MB.
+                    band_rows: int = None, sub8x8: bool = False):
+    """Integer-pel search for the partition slots of every MB: the 9 of
+    :data:`SLOTS4`, or 41 with ``sub8x8``.
 
     org_y [H, W]; ref_ys [R, H+2P, W+2P] padded integer luma planes;
     ``band_rows``: MB rows per slice (default: one slice).  Returns (mv_int
-    [R, 9, nmb, 2] integer pel (x, y), sad_int [R, 9, nmb], pmv2 [R, 9,
+    [R, ns, nmb, 2] integer pel (x, y), sad_int [R, ns, nmb], pmv2 [R, ns,
     nmb, 2] quarter-pel pass-2 predictors).
 
     Pass 1 finds the pure-distortion 16x16 field; pass 2 takes the argmin
@@ -219,7 +244,9 @@ def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
     n = 2 * sr + 1
     o = org_y.to(torch.int32)
     refs = ref_ys.to(torch.int32).contiguous()
-    sl = torch.empty((R, n, n, 9, nmb), dtype=torch.int32, device=dev)
+    slots4 = slot_geometry(sub8x8)
+    ns = len(slots4)
+    sl = torch.empty((R, n, n, ns, nmb), dtype=torch.int32, device=dev)
     for r in range(R):
         # every candidate window of the reference as one strided view
         win = refs[r].as_strided((n, n, H, W), (Wp, 1, Wp, 1),
@@ -229,11 +256,11 @@ def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
             d = torch.abs(o - win[dyi])                       # [n, H, W]
             cells = d.reshape(n, H // 4, 4, W // 4, 4).sum(
                 (2, 4), dtype=torch.int32)
-            sl[r, dyi] = _slot_sads(cells, mb_h, mb_w)
-    sl = sl.reshape(R, n * n, 9, nmb)
+            sl[r, dyi] = _slot_sads(cells, mb_h, mb_w, slots4)
+    sl = sl.reshape(R, n * n, ns, nmb)
     offs = _c(f"me_offs{sr}", _offsets(sr), dev)             # [noff, 2]
 
-    best1 = torch.argmin(sl.to(torch.float32), dim=1)         # [R, 9, nmb]
+    best1 = torch.argmin(sl.to(torch.float32), dim=1)         # [R, ns, nmb]
     f16 = torch.stack([offs[best1[:, 0], 1], offs[best1[:, 0], 0]], -1)
     f16 = f16.reshape(R, mb_h, mb_w, 2).to(torch.int32)
 
@@ -253,10 +280,10 @@ def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
     oy = (4 * offs[:, 0]).to(torch.int32)[None, :, None, None]
     bits = se_bits(ox - pmv[..., 0][:, None]) \
         + se_bits(oy - pmv[..., 1][:, None])                 # [R, noff, 1, nmb]
-    best2 = torch.argmin(_fma(lam_me, bits, sl), dim=1)        # [R, 9, nmb]
+    best2 = torch.argmin(_fma(lam_me, bits, sl), dim=1)        # [R, ns, nmb]
     mv2 = torch.stack([offs[best2, 1], offs[best2, 0]], -1).to(torch.int32)
     sad2 = torch.gather(sl, 1, best2[:, None])[:, 0]
-    return mv2, sad2, pmv.expand(R, 9, nmb, 2)
+    return mv2, sad2, pmv.expand(R, ns, nmb, 2)
 
 
 # ===========================================================================
@@ -304,13 +331,14 @@ _SUB_STEPS = {step: [(ddx, ddy) for ddy in (-step, 0, step)
               for step in (2, 1)}
 
 
-def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float):
+def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float,
+                   sub8x8: bool = False):
     """Refine every (ref, slot, MB) to quarter-pel: the 8 half-pel then the
     8 quarter-pel neighbours of the best so far, by SATD + lambda_me * MVD
     bits; a candidate must be strictly better to win.
 
-    ups [R, 4, 4, H+2P, W+2P] uint8.  Returns (mv_q [R, 9, nmb, 2], dist_q
-    [R, 9, nmb])."""
+    ups [R, 4, 4, H+2P, W+2P] uint8.  Returns (mv_q [R, ns, nmb, 2], dist_q
+    [R, ns, nmb]) over the slots of :func:`slot_geometry`."""
     dev = org_y.device
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
@@ -324,7 +352,7 @@ def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float):
     mb_x = (mb_i % mb_w) * 16
     rr = _ar(R, dev)[:, None, None]
     out_mv, out_sad = [], []
-    for s, (cy, cx, ch, cw) in enumerate(SLOTS4):
+    for s, (cy, cx, ch, cw) in enumerate(slot_geometry(sub8x8)):
         bh, bw = ch * 4, cw * 4
         y0 = mb_y + cy * 4
         x0 = mb_x + cx * 4
@@ -482,22 +510,31 @@ def _mb_unblocks(b: torch.Tensor) -> torch.Tensor:
     return b.transpose(-3, -2).reshape(*b.shape[:-4], 16, 16)
 
 
-def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off):
+def _tabs(qm, key: str):
+    """(mf, ils) weighted tables of scaling-list group ``key`` ("i4", "p4",
+    "p8"), or (None, None) for the flat lists."""
+    return (None, None) if qm is None else (qm[key]["mf"], qm[key]["ils"])
+
+
+def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off, qm=None):
     """Intra 16x16 RD over 4 modes.  patch [L, 17, 25] the reconstruction
     around the MB (row 0 / column 0 are the neighbours)."""
     L = patch.shape[0]
+    mf, ils = _tabs(qm, "i4")
     preds, allowed = IP.pred16x16_all(patch[:, 0, 1:17], patch[:, 1:17, 0],
                                       patch[:, 0, 0], lc["mby"] > 0,
                                       lc["mbx"] > 0)              # [L,4,16,16]
     w = Q.fdct4x4(_mb_blocks(org16[:, None] - preds))             # [L,4,4,4,4,4]
-    dc_lev = Q.quant_dc16(Q.hadamard4x4_fwd(w[..., 0, 0]), qp)    # [L,4,4,4]
-    dc_deq = Q.dequant_dc16(dc_lev, qp)
-    ac_lev = Q.quant4x4(w, qp, True, offsets=ar_off[:, None, None, None])
+    dc_lev = Q.quant_dc16(Q.hadamard4x4_fwd(w[..., 0, 0]), qp,
+                          mf4=mf)                                 # [L,4,4,4]
+    dc_deq = Q.dequant_dc16(dc_lev, qp, ils=ils)
+    ac_lev = Q.quant4x4(w, qp, True, offsets=ar_off[:, None, None, None],
+                        mf=mf)
     ac_lev[..., 0, 0] = 0
     ac_zz = Q.zigzag(ac_lev)[..., 1:]                             # [L,4,4,4,15]
     cbp = (ac_zz != 0).flatten(-3).any(-1)                        # [L,4]
     deq = torch.where(cbp[..., None, None, None, None],
-                      Q.dequant4x4(ac_lev, qp), 0)
+                      Q.dequant4x4(ac_lev, qp, ils=ils), 0)
     deq[..., 0, 0] = dc_deq
     rec = _mb_unblocks(Q.reconstruct(_mb_blocks(preds), Q.idct4x4(deq)))
     ssd = ((org16[:, None] - rec) ** 2).sum((-1, -2), dtype=torch.int32)
@@ -513,17 +550,19 @@ def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off):
     bits = torch.where(cbp, ac_bits, 0) + dc_bits
     cost = torch.where(allowed, _fma(lam, bits, ssd), BIG)
     m = torch.argmin(cost, -1)
-    fadj = Q.ar_fadjust(_take(w, m), _take(ac_lev, m), qp).sum(
+    fadj = Q.ar_fadjust(_take(w, m), _take(ac_lev, m), qp, mf=mf).sum(
         (1, 2), dtype=torch.int32)
     return dict(i16mode=m.to(torch.int32), dc_zz=_take(dc_zz, m),
                 ac_zzs=_take(ac_zz, m), cbp_luma=_take(cbp, m),
                 rec=_take(rec, m), cost=_take(cost, m), fadj=fadj)
 
 
-def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off):
+def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off,
+             qm=None):
     """Intra 4x4 RD: the 16 blocks in coding order, each seeing the
     reconstruction of the ones before it."""
     dev = patch.device
+    mf, ils = _tabs(qm, "i4")
     L = patch.shape[0]
     ar = _ar(L, dev)
     patch = patch.clone()
@@ -567,9 +606,10 @@ def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off):
                                      torch.where(avail_t, nb_, 0)))
         org4 = org16[:, 4 * y4:4 * y4 + 4, 4 * x4:4 * x4 + 4]
         w = Q.fdct4x4(org4[:, None] - preds)                      # [L,9,4,4]
-        lev = Q.quant4x4(w, qp, True, offsets=ar_off[:, None])
+        lev = Q.quant4x4(w, qp, True, offsets=ar_off[:, None], mf=mf)
         zz = Q.zigzag(lev)                                        # [L,9,16]
-        rec9 = Q.reconstruct(preds, Q.idct4x4(Q.dequant4x4(lev, qp)))
+        rec9 = Q.reconstruct(preds, Q.idct4x4(Q.dequant4x4(lev, qp,
+                                                           ils=ils)))
         ssd9 = ((org4[:, None] - rec9) ** 2).sum((-1, -2), dtype=torch.int32)
         mode_bits9 = torch.where(nine[None] == mpm[:, None], 1, 4)
         coeff9 = CD.block_bits_est(zz, nc[:, None].expand(L, 9), 16)
@@ -583,7 +623,7 @@ def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off):
         nnz_loc[:, y4, x4] = (zz_m != 0).sum(-1, dtype=torch.int32)
         ssd_tot = ssd_tot + ssd9[ar, m]
         bits_tot = bits_tot + bits9[ar, m]
-        fadj_tot = fadj_tot + Q.ar_fadjust(w[ar, m], lev[ar, m], qp)
+        fadj_tot = fadj_tot + Q.ar_fadjust(w[ar, m], lev[ar, m], qp, mf=mf)
         modes.append(m32)
         zzs.append(zz_m)
         flags.append(torch.stack([(m32 == mpm).to(torch.int32),
@@ -594,24 +634,28 @@ def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off):
                 cost=_fma(lam, bits_tot, ssd_tot), fadj=fadj_tot)
 
 
-def _code_chroma(org2, pred2, qpc: int, intra: bool):
+def _code_chroma(org2, pred2, qpc: int, intra: bool, qm=None):
     """Residual coding of both chroma blocks: org2/pred2 [..., 2, 8, 8] ->
     (dc_levels [..., 2, 4], ac_zzs [..., 2, 2, 2, 15], recs [..., 2, 8, 8],
     cbp_chroma [...])."""
+    mf, ils = _tabs(qm, "i4" if intra else "p4")
     def blocks(x):
         return x.reshape(*x.shape[:-2], 2, 4, 2, 4).transpose(-3, -2)
 
     w = Q.fdct4x4(blocks(org2 - pred2))                         # [...,2,2,2,4,4]
-    dc_lev = Q.quant_dc_chroma(Q.hadamard2x2_fwd(w[..., 0, 0]), qpc, intra)
-    ac_lev = Q.quant4x4(w, qpc, intra)
+    dc_lev = Q.quant_dc_chroma(Q.hadamard2x2_fwd(w[..., 0, 0]), qpc, intra,
+                               mf4=mf)
+    ac_lev = Q.quant4x4(w, qpc, intra, mf=mf)
     ac_lev[..., 0, 0] = 0
     ac_zz = Q.zigzag(ac_lev)[..., 1:]                           # [...,2,2,2,15]
     any_ac = (ac_zz != 0).flatten(-4).any(-1)
     any_dc = (dc_lev != 0).flatten(-2).any(-1)
     cbp = torch.where(any_ac, 2, torch.where(any_dc, 1, 0)).to(torch.int32)
     c = cbp[..., None, None, None]
-    deq = torch.where((c == 2)[..., None, None], Q.dequant4x4(ac_lev, qpc), 0)
-    deq[..., 0, 0] = torch.where(c >= 1, Q.dequant_dc_chroma(dc_lev, qpc), 0)
+    deq = torch.where((c == 2)[..., None, None],
+                      Q.dequant4x4(ac_lev, qpc, ils=ils), 0)
+    deq[..., 0, 0] = torch.where(c >= 1, Q.dequant_dc_chroma(dc_lev, qpc,
+                                                             ils=ils), 0)
     rec_b = Q.reconstruct(blocks(pred2), Q.idct4x4(deq))
     recs = rec_b.transpose(-3, -2).reshape(pred2.shape)
     ac_zz = torch.where((c == 2)[..., None], ac_zz, 0)
@@ -619,7 +663,7 @@ def _code_chroma(org2, pred2, qpc: int, intra: bool):
     return dc_lev, ac_zz, recs, cbp
 
 
-def _eval_chroma_intra(pu, pv, org2, lc, qpc: int):
+def _eval_chroma_intra(pu, pv, org2, lc, qpc: int, qm=None):
     """Chroma intra: SAD mode pick over both components, then the residual.
     pu/pv [L, 9, 9] reconstruction around the MB; org2 [L, 2, 8, 8]."""
     pr, al = [], None
@@ -631,7 +675,7 @@ def _eval_chroma_intra(pu, pv, org2, lc, qpc: int):
     sad4 = torch.abs(org2[:, :, None] - preds).sum((1, 3, 4), dtype=torch.int32)
     mode = torch.argmin(torch.where(al, sad4.to(torch.float32), BIG), -1)
     pred2 = preds[_ar(preds.shape[0], preds.device), :, mode]    # [L,2,8,8]
-    dc, ac, recs, cbp = _code_chroma(org2, pred2, qpc, True)
+    dc, ac, recs, cbp = _code_chroma(org2, pred2, qpc, True, qm)
     return dict(mode=mode.to(torch.int32), dc_levels=dc, ac_zzs=ac,
                 recs=recs, cbp_chroma=cbp)
 
@@ -661,57 +705,95 @@ def _cbp_bits(nz_b8: torch.Tensor) -> torch.Tensor:
     return (nz_b8.to(torch.int32) * w).sum(-1, dtype=torch.int32)
 
 
-def _code_inter_luma(org16, pred16, qp: int, ar_off):
+def _code_inter_luma(org16, pred16, qp: int, ar_off, qm=None):
     """Residual coding of [..., 16, 16] predictions -> (zz_coding [..., 16,
     16] in coding order, rec [..., 16, 16], cbp_luma bits [...], fadj [...,
     4, 4] adaptive-rounding adjustment sum)."""
+    mf, ils = _tabs(qm, "p4")
     w = Q.fdct4x4(_mb_blocks(org16 - pred16))                  # [...,4,4,4,4]
-    lev = Q.quant4x4(w, qp, False, offsets=ar_off)
+    lev = Q.quant4x4(w, qp, False, offsets=ar_off, mf=mf)
     zz = Q.zigzag(lev)                                         # [...,4,4,16]
     rec = _mb_unblocks(Q.reconstruct(_mb_blocks(pred16),
-                                     Q.idct4x4(Q.dequant4x4(lev, qp))))
+                                     Q.idct4x4(Q.dequant4x4(lev, qp,
+                                                            ils=ils))))
     nz44 = (zz != 0).any(-1)                                   # [..., y4, x4]
     nz8 = nz44.reshape(*nz44.shape[:-2], 2, 2, 2, 2).any(-1).any(-2)
     cbp = _cbp_bits(nz8.reshape(*nz8.shape[:-2], 4))
     sy = _c("scan_y", _SCANY, zz.device)
     sx = _c("scan_x", _SCANX, zz.device)
-    fadj = Q.ar_fadjust(w, lev, qp).sum((-3, -4), dtype=torch.int32)
+    fadj = Q.ar_fadjust(w, lev, qp, mf=mf).sum((-3, -4), dtype=torch.int32)
     return zz[..., sy, sx, :], rec, cbp, fadj
+
+
+def _code_inter_luma8(org16, pred16, qp: int, qm=None):
+    """High-profile 8x8 luma residual coding of [..., 16, 16] predictions.
+
+    Returns (zz_coding [..., 16, 16] — the four 8x8 blocks' coefficients as
+    CAVLC-interleaved 4x4 sub-blocks in coding order (coefficient k of
+    sub-block b4 is 8x8 scan position 4k+b4, spec 7.3.5.3.2), rec [..., 16,
+    16], cbp_luma bits [...] with one bit per coded 8x8, nnz_cells [..., 4,
+    4] per-sub-block counts).  Reference: JM/lencod/src/transform8x8.c:522."""
+    mf, ils = _tabs(qm, "p8")
+    lead = org16.shape[:-2]
+
+    def blocks8(x):
+        return x.reshape(*lead, 2, 8, 2, 8).transpose(-3, -2)
+
+    w = Q8.fdct8x8(blocks8(org16 - pred16))                    # [...,2,2,8,8]
+    lev = Q8.quant8x8(w, qp, False, mf=mf)
+    zz = Q8.zigzag8(lev)                                       # [...,2,2,64]
+    nz8 = (zz != 0).any(-1)                                    # [..., 2, 2]
+    lev = torch.where(nz8[..., None, None], lev, 0)
+    zz = torch.where(nz8[..., None], zz, 0)
+    rec = Q8.reconstruct8(blocks8(pred16),
+                          Q8.idct8x8(Q8.dequant8x8(lev, qp, ils=ils)))
+    rec = rec.transpose(-3, -2).reshape(*lead, 16, 16)
+    cbp = _cbp_bits(nz8.reshape(*lead, 4))
+    subs = zz.reshape(*lead, 2, 2, 16, 4).transpose(-1, -2)   # [.,.,.,b4,16]
+    counts = (subs != 0).sum(-1, dtype=torch.int32)            # [..., 2, 2, 4]
+    nnz_cells = counts.reshape(*lead, 2, 2, 2, 2).transpose(-3, -2).reshape(
+        *lead, 4, 4)
+    return subs.reshape(*lead, 16, 16), rec, cbp, nnz_cells
 
 
 # ===========================================================================
 # Motion compensation gathers (band-local coordinates, band-view clamps)
 # ===========================================================================
 
+def _lane_band(fr, like: torch.Tensor) -> torch.Tensor:
+    """The lanes' band index shaped to broadcast against ``like [L, ...]``."""
+    return fr["band"].reshape(-1, *([1] * (like.dim() - 1)))
+
+
 def _mc_luma(fr, r, mv, y0, x0, bh: int, bw: int):
-    """[L, bh, bw] luma prediction from reference ``r [L]`` at band-local
-    (y0, x0) [L] with quarter-pel mv [L, 2]."""
-    base = _luma_base(fr["ups"].shape, r, mv[:, 0], mv[:, 1], y0, x0, bh, bw,
-                      fr["P"], fr["band"], fr["band_h"])
+    """[L, ..., bh, bw] luma prediction from reference ``r [L, ...]`` at
+    band-local (y0, x0) [L, ...] with quarter-pel mv [L, ..., 2]."""
+    base = _luma_base(fr["ups"].shape, r, mv[..., 0], mv[..., 1], y0, x0, bh,
+                      bw, fr["P"], _lane_band(fr, r), fr["band_h"])
     return _gather(fr["ups_flat"], base, fr["ups"].shape[-1], bh, bw)
 
 
 def _mc_chroma(fr, r, mv, cy, cx, bh: int, bw: int):
-    """[L, 2, bh, bw] spec 8.4.2.2.2 bilinear chroma prediction (U, V); mv
-    in luma quarter-pel."""
+    """[L, ..., 2, bh, bw] spec 8.4.2.2.2 bilinear chroma prediction (U,
+    V) from reference ``r [L, ...]``; mv [L, ..., 2] in luma quarter-pel."""
     _, Hcf, Wc = fr["us"].shape
     PC, hc = fr["PC"], fr["band_h"] // 2
-    mvx = mv[:, 0].to(torch.int32)
-    mvy = mv[:, 1].to(torch.int32)
-    fx = (mvx & 7)[:, None, None]
-    fy = (mvy & 7)[:, None, None]
+    mvx = mv[..., 0].to(torch.int32)
+    mvy = mv[..., 1].to(torch.int32)
+    fx = (mvx & 7)[..., None, None]
+    fy = (mvy & 7)[..., None, None]
     y = torch.clamp(cy + PC + (mvy >> 3), 0, hc + 2 * PC - (bh + 1)) \
-        + fr["band"] * hc
+        + _lane_band(fr, r) * hc
     x = torch.clamp(cx + PC + (mvx >> 3), 0, Wc - (bw + 1))
     base = (r.to(torch.int64) * Hcf + y) * Wc + x
     out = []
     for flat in (fr["us_flat"], fr["vs_flat"]):
         win = _gather(flat, base, Wc, bh + 1, bw + 1)
-        A, B = win[:, :bh, :bw], win[:, :bh, 1:]
-        C, D = win[:, 1:, :bw], win[:, 1:, 1:]
+        A, B = win[..., :bh, :bw], win[..., :bh, 1:]
+        C, D = win[..., 1:, :bw], win[..., 1:, 1:]
         out.append(((8 - fx) * (8 - fy) * A + fx * (8 - fy) * B
                     + (8 - fx) * fy * C + fx * fy * D + 32) >> 6)
-    return torch.stack(out, 1)
+    return torch.stack(out, -3)
 
 
 def _win(plane, band, y0, x0, h: int, w: int):
@@ -811,13 +893,108 @@ def _inter_candidates(st, lc, fr, mv_mb, sad_mb, cfg):
     hdr = torch.cat([hdr, (3 + te_bits(zero[:, None].to(torch.int32),
                                        n_valid))], 1)
     z42 = torch.zeros((L, 1, 4, 2), dtype=torch.int32, device=dev)
-    return dict(
+    cand = dict(
         pred16=pred16, predc=predc, hdr=hdr,
         ref=torch.cat([ref_m, zero[:, None]], 1).to(torch.int32),
         mvds=torch.cat([mvds_m, z42], 1),
         mvs=torch.cat([mvs_m, pm0[:, None, None].expand(L, 1, 4, 2)], 1),
         smv=smv, pred16_sk=_mc_luma(fr, zero, smv, y0, x0, 16, 16),
         predc_sk=_mc_chroma(fr, zero, smv, cy0, cx0, 8, 8))
+    if cfg["sub8x8"]:
+        # the sub-partitioned P_8x8 is the last candidate; its MVs travel
+        # as cells (``sub_ov``), its MVD slots stay zero like the JAX
+        # package's
+        sub = _sub_candidate(st, lc, fr, mv_mb, sad_mb, cfg)
+        for k in ("pred16", "predc", "hdr", "ref"):
+            cand[k] = torch.cat([cand[k], sub[k][:, None]], 1)
+        for k in ("mvds", "mvs"):
+            cand[k] = torch.cat([cand[k], z42], 1)
+        cand.update(sub_t=sub["sub"], sub_mvd=sub["mvd_s"], sub_ov=sub["ov"])
+    return cand
+
+
+_CELLS16 = np.array([(cy, cx) for cy in range(4) for cx in range(4)],
+                    np.int64)
+
+
+def _sub_candidate(st, lc, fr, mv_mb, sad_mb, cfg):
+    """P_8x8 with a sub_mb_type per 8x8 cell (8x8/8x4/4x8/4x4, spec Table
+    7-14): per cell, in z-order, the sub-mode of least SATD + lambda_me *
+    (sub_mb_type + MVD bits), each part predicted from the parts before it
+    (JM submacroblock_mode_decision, lencod/src/md_low.c); the reference by
+    the summed cost.  Returns the candidate's prediction, header bits,
+    reference, sub types [L, 4], sub MVDs [L, 4, 4, 2] and MV cells [L, 4,
+    4, 2]."""
+    dev = mv_mb.device
+    L, R = mv_mb.shape[:2]
+    lam_me, n_valid = cfg["lam_me"], cfg["n_valid"]
+    ar = _ar(L, dev)
+    al, rr = ar[:, None], _ar(R, dev)[None]
+
+    def take(x, idx):                        # x[l, r, idx[l, r]]
+        return x[al, rr, idx]
+
+    rv = _ar(R, dev).to(torch.int32)[None]                     # [1, R]
+    bits = (5 + 4 * te_bits(rv, n_valid)).expand(L, R)         # ue(3) + refs
+    satd = torch.zeros((L, R), dtype=torch.int32, device=dev)
+    ov_mv = torch.zeros((L, R, 4, 4, 2), dtype=torch.int32, device=dev)
+    ov_ref = torch.full((L, R, 4, 4), -2, dtype=torch.int32, device=dev)
+    subt, mvd_c = [], []
+    for c, (scy, scx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        o_cost, o_bits, o_ov, o_ovr, o_mvd, o_satd = [], [], [], [], [], []
+        for t in range(4):
+            if t == 0:
+                parts = ((5 + c, 2 * scy, 2 * scx, 2, 2),)
+            else:
+                parts = tuple((9 + 8 * c + off,) + SUB_SLOTS4[8 * c + off]
+                              for off in SUB_OPT_LOCAL[t])
+            ov_l, ovr_l = ov_mv.clone(), ov_ref.clone()
+            tb = torch.full((L, R), SUB_HDR_BITS[t], dtype=torch.int32,
+                            device=dev)
+            ts = torch.zeros((L, R), dtype=torch.int32, device=dev)
+            mvd4 = torch.zeros((L, R, 4, 2), dtype=torch.int32, device=dev)
+            for pi, (slot, dy4, dx4, h4p, w4p) in enumerate(parts):
+                pm = _predict_mv(st, lc, ov_l, ovr_l, dy4, dx4, w4p, rv,
+                                 "none", 1)
+                mv = mv_mb[:, :, slot]
+                tb = tb + se_bits(mv[..., 0] - pm[..., 0]) \
+                    + se_bits(mv[..., 1] - pm[..., 1])
+                ts = ts + sad_mb[:, :, slot]
+                ov_l[:, :, dy4:dy4 + h4p, dx4:dx4 + w4p] = mv[:, :, None, None]
+                ovr_l[:, :, dy4:dy4 + h4p, dx4:dx4 + w4p] = rv[..., None, None]
+                mvd4[:, :, pi] = mv - pm
+            o_cost.append(_fma(lam_me, tb, ts))
+            o_bits.append(tb)
+            o_ov.append(ov_l)
+            o_ovr.append(ovr_l)
+            o_mvd.append(mvd4)
+            o_satd.append(ts)
+        tsel = torch.argmin(torch.stack(o_cost, -1), -1)        # [L, R]
+        ov_mv = take(torch.stack(o_ov, 2), tsel)
+        ov_ref = take(torch.stack(o_ovr, 2), tsel)
+        bits = bits + take(torch.stack(o_bits, -1), tsel)
+        satd = satd + take(torch.stack(o_satd, -1), tsel)
+        subt.append(tsel.to(torch.int32))
+        mvd_c.append(take(torch.stack(o_mvd, 2), tsel))
+    cost = torch.where(rv < n_valid, _fma(lam_me, bits, satd), BIG)
+    rsub = torch.argmin(cost, 1)                                # [L]
+    ov = ov_mv[ar, rsub]                                        # [L, 4, 4, 2]
+
+    # the prediction: one 4x4 luma / 2x2 chroma block per MV cell
+    cells = _c("cells16", _CELLS16, dev)
+    r16 = rsub[:, None].expand(L, 16)
+    mv16 = ov.reshape(L, 16, 2)
+    pl = _mc_luma(fr, r16, mv16, 16 * lc["mby"][:, None] + 4 * cells[:, 0],
+                  16 * lc["mbx"][:, None] + 4 * cells[:, 1], 4, 4)
+    pc = _mc_chroma(fr, r16, mv16, 8 * lc["mby"][:, None] + 2 * cells[:, 0],
+                    8 * lc["mbx"][:, None] + 2 * cells[:, 1], 2, 2)
+    return dict(
+        pred16=_mb_unblocks(pl.reshape(L, 4, 4, 4, 4)),
+        predc=pc.reshape(L, 4, 4, 2, 2, 2).permute(0, 3, 1, 4, 2, 5).reshape(
+            L, 2, 8, 8),
+        hdr=bits[ar, rsub], ref=rsub.to(torch.int32),
+        sub=torch.stack(subt, -1)[ar, rsub],
+        mvd_s=torch.stack(mvd_c, 2)[ar, rsub], ov=ov)
 
 
 def _nz_cells(zz_coding):
@@ -857,7 +1034,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
     dev = lc["band"].device
     L = lc["band"].shape[0]
     ar = _ar(L, dev)
-    qp, qpc, lam = cfg["qp"], cfg["qpc"], cfg["lam"]
+    qp, qpc, lam, qm = cfg["qp"], cfg["qpc"], cfg["lam"], cfg["qm"]
     band, mby, mbx = lc["band"], lc["mby"], lc["mbx"]
     by0, bx0 = lc["by0"], lc["bx0"]
     ar_i = st["ar_i"][band]
@@ -872,11 +1049,11 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                t_i4m=_win(st["i4m"], band, trow, bx0, 1, 4)[:, 0])
 
     patch = _win(st["rec_y"], band, 16 * mby, 16 * mbx, 17, 25)
-    i16 = _eval_i16(patch, org16, lc, nbr, qp, lam, ar_i)
-    i4 = _eval_i4(patch, org16, lc, nbr, qp, lam, cfg["mb_w"], ar_i)
+    i16 = _eval_i16(patch, org16, lc, nbr, qp, lam, ar_i, qm)
+    i4 = _eval_i4(patch, org16, lc, nbr, qp, lam, cfg["mb_w"], ar_i, qm)
     ch = _eval_chroma_intra(_win(st["rec_u"], band, 8 * mby, 8 * mbx, 9, 9),
                             _win(st["rec_v"], band, 8 * mby, 8 * mbx, 9, 9),
-                            org2, lc, qpc)
+                            org2, lc, qpc, qm)
     i16_cost = _fma(lam, 11.0, i16["cost"])
     i4_cost = _fma(lam, 9.0, i4["cost"])
     zi = torch.zeros(L, dtype=torch.int32, device=dev)
@@ -895,13 +1072,14 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         crecs_int = predc = torch.zeros((L, 2, 8, 8), dtype=torch.int32,
                                         device=dev)
         ar_p_add = torch.zeros((L, 4, 4), dtype=torch.int32, device=dev)
+        t8 = is_skip
     else:
         cand = _inter_candidates(st, lc, fr, mv_mb, sad_mb, cfg)
         M = cand["pred16"].shape[1]
         zzc_m, rec_m, cbpL_m, fadj_m = _code_inter_luma(
-            org16[:, None], cand["pred16"], qp, ar_p[:, None, None, None])
+            org16[:, None], cand["pred16"], qp, ar_p[:, None, None, None], qm)
         dcl_m, acz_m, crecs_m, cbpC_m = _code_chroma(
-            org2[:, None], cand["predc"], qpc, False)
+            org2[:, None], cand["predc"], qpc, False, qm)
         ssd_m = _ssd(org16[:, None], rec_m, (-1, -2)) \
             + _ssd(org2[:, None], crecs_m, (-1, -2, -3))
         cbp_m = cbpL_m | (cbpC_m << 4)
@@ -960,6 +1138,26 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         pred16 = torch.where(n2, _take(cand["pred16"], win_m), pred16_sk)
         predc = torch.where(n3, _take(cand["predc"], win_m), predc_sk)
 
+        t8 = torch.zeros_like(nsk)
+        if cfg["transform8"]:
+            # High profile: re-code the winning prediction with the 8x8
+            # transform; per-MB transform_size_8x8_flag by RD (luma SSD +
+            # bits only: chroma is the same both ways)
+            zz8, rec8, cbp8, _ = _code_inter_luma8(org16, pred16, qp, qm)
+            db = _cbp_ue(cbp8 | (cbp_c_int << 4)) \
+                - _cbp_ue(cbp_bits_int | (cbp_c_int << 4))
+            rd8 = _fma(lam, _luma_bits(zz8, cbp8, lc, nbr) + db,
+                       _ssd(org16, rec8, (-1, -2)))
+            rd4 = _fma(lam, _take(lum_bits, win_m),
+                       _ssd(org16, rec16_int, (-1, -2)))
+            t8 = nsk & ~is_intra & (cbp8 > 0) & (rd8 < rd4)
+            if cfg["sub8x8"]:
+                # the flag is illegal when a partition is below 8x8
+                t8 = t8 & (win_m != M - 1)
+            zzc = torch.where(t8[:, None, None], zz8, zzc)
+            rec16_int = torch.where(t8[:, None, None], rec8, rec16_int)
+            cbp_bits_int = torch.where(t8, cbp8, cbp_bits_int)
+
         # RD-gated decimation of the winner's 8x8 groups whose |level| <= 1
         # coefficients cost more rate than they buy
         c8 = _coeff_cost(zzc).reshape(L, 4, 4).sum(-1, dtype=torch.int32)
@@ -971,7 +1169,8 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         lev_dec[:, _c("scan_y", _SCANY, dev), _c("scan_x", _SCANX, dev)] = \
             Q.unzigzag(zz_dec)
         rec_dec = _mb_unblocks(Q.reconstruct(
-            _mb_blocks(pred16), Q.idct4x4(Q.dequant4x4(lev_dec, qp))))
+            _mb_blocks(pred16), Q.idct4x4(Q.dequant4x4(
+                lev_dec, qp, ils=_tabs(qm, "p4")[1]))))
         cbp_dec = _cbp_bits((zz_dec != 0).any(-1).reshape(L, 4, 4).any(-1))
         bits_dec = _luma_bits(zz_dec, cbp_dec, lc, nbr)
         bits_cur = _luma_bits(zzc, cbp_bits_int, lc, nbr)
@@ -979,14 +1178,16 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
             - _cbp_ue(cbp_bits_int | (cbp_c_int << 4))
         rd_dec = _fma(lam, bits_dec + dcbp, _ssd(org16, rec_dec, (-1, -2)))
         rd_cur = _fma(lam, bits_cur, _ssd(org16, rec16_int, (-1, -2)))
-        use_dec = nsk & ~is_intra & (cbp_dec != cbp_bits_int) \
+        use_dec = nsk & ~is_intra & ~t8 & (cbp_dec != cbp_bits_int) \
             & (rd_dec < rd_cur)
         zzc = torch.where(use_dec[:, None, None], zz_dec, zzc)
         rec16_int = torch.where(use_dec[:, None, None], rec_dec, rec16_int)
         cbp_bits_int = torch.where(use_dec, cbp_dec, cbp_bits_int)
 
-        # the zero-MVD candidate emits as P_16x16
-        emit_m = torch.where(win_m == M - 1, 0, win_m)
+        # the zero-MVD candidate emits as P_16x16 (it is the last one, or
+        # the one before the sub-partitioned P_8x8)
+        emit_m = torch.where(win_m == (M - 2 if cfg["sub8x8"] else M - 1), 0,
+                             win_m)
         is_skip = skip_cand | (
             (~is_intra) & (emit_m == 0) & (win_r == 0) & (cbp_bits_int == 0)
             & (cbp_c_int == 0) & (win_mvs[:, 0, 0] == smv[:, 0])
@@ -1025,6 +1226,12 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
     part = _c("part_map", _PART_MAP, dev)[torch.clamp(emit_m, max=3).long()]
     mv_cells = torch.where(is_intra[:, None, None, None], 0,
                            win_mvs[ar[:, None, None], part])
+    inter_code = 1 + emit_m
+    if cfg["sub8x8"] and not cfg["intra_only"]:
+        is_subw = ~is_intra & ~is_skip & (emit_m == M - 1)
+        mv_cells = torch.where(is_subw[:, None, None, None], cand["sub_ov"],
+                               mv_cells)
+        inter_code = torch.where(emit_m == M - 1, 7, inter_code)
     ref_cells = torch.where(is_intra, -1, win_r)[:, None, None].expand(L, 4, 4)
     fadj_intra = torch.where(sel_i16[:, None, None], i16["fadj"], i4["fadj"])
     upd = dict(rec16=rec16, recc=recc, mv_cells=mv_cells, ref_cells=ref_cells,
@@ -1034,7 +1241,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                ar_p_add=ar_p_add)
 
     win_code = torch.where(sel_i16, 6, torch.where(
-        sel_i4, 5, torch.where(is_skip, 0, 1 + emit_m)))
+        sel_i4, 5, torch.where(is_skip, 0, inter_code)))
     i32 = torch.int32
     out = dict(
         win=win_code.to(i32),
@@ -1045,6 +1252,16 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         cbp_luma=cbp_luma.to(i32), cbp_chroma=cbp_chroma.to(i32),
         zz=zz_out.to(i32), cdc=cdc_out.to(i32), cac=cac_out.to(i32),
         mb_intra=is_intra)
+    if cfg["transform8"]:
+        out["t8"] = (t8 & ~is_intra & ~is_skip).to(i32)
+    if cfg["sub8x8"]:
+        if cfg["intra_only"]:
+            out["sub"] = torch.zeros((L, 4), dtype=i32, device=dev)
+            out["mvd_s"] = torch.zeros((L, 4, 4, 2), dtype=i32, device=dev)
+        else:
+            out["sub"] = torch.where(is_subw[:, None], cand["sub_t"], 0)
+            out["mvd_s"] = torch.where(is_subw[:, None, None, None],
+                                       cand["sub_mvd"], 0)
     return upd, out
 
 
@@ -1052,15 +1269,18 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
 # The frame encoder
 # ===========================================================================
 
-def search(org_y, ref_ups, sr: int, qp: int, n_slices: int = 1):
-    """Stages A and B for every MB of the frame: (mv_q [nmb, R, 9, 2]
-    quarter-pel, dist_q [nmb, R, 9] SATD)."""
+def search(org_y, ref_ups, sr: int, qp: int, n_slices: int = 1,
+           sub8x8: bool = False):
+    """Stages A and B for every MB of the frame: (mv_q [nmb, R, ns, 2]
+    quarter-pel, dist_q [nmb, R, ns] SATD) over :func:`slot_geometry`."""
     mb_h = org_y.shape[0] // 16
     _, lam_me = lambdas(qp)
     ref_pads = ref_ups[:, 0, 0].to(torch.int32)          # integer samples
     mv_int, _sad, pmv2 = _integer_search(org_y, ref_pads, sr, lam_me,
-                                         band_rows=mb_h // n_slices)
-    mv_q, sad_q = _subpel_refine(org_y, ref_ups, mv_int, pmv2, sr, lam_me)
+                                         band_rows=mb_h // n_slices,
+                                         sub8x8=sub8x8)
+    mv_q, sad_q = _subpel_refine(org_y, ref_ups, mv_int, pmv2, sr, lam_me,
+                                 sub8x8=sub8x8)
     return mv_q.permute(2, 0, 1, 3), sad_q.permute(2, 0, 1)
 
 
@@ -1086,7 +1306,9 @@ def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
 
 def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
            qp: int, n_valid: int, force_intra, *, sr: int, sb_h: int,
-           intra_only: bool, chroma_qp_offset: int = 0, marks=None):
+           intra_only: bool, chroma_qp_offset: int = 0,
+           transform8: bool = False, sub8x8: bool = False,
+           scaling_default: bool = False, marks=None):
     """The wavefront decision scan over every row-band slice at once.
 
     An MB depends on its left, top and top-right neighbours only, so the
@@ -1106,9 +1328,16 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
     S = mb_h // sb_h
     sh4, w4 = sb_h * 4, mb_w * 4
     lam, lam_me = lambdas(qp)
+    qm = None
+    if scaling_default:
+        # the spec default matrices' weighted LevelScale / InvLevelScale
+        qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
+                  for m, t in tabs.items()}
+              for k, tabs in QM.enc_tables_default().items()}
     cfg = dict(qp=qp, qpc=Q.chroma_qp(qp, chroma_qp_offset), lam=lam,
                lam_me=lam_me, n_valid=n_valid, mb_w=mb_w,
-               intra_only=intra_only)
+               intra_only=intra_only, transform8=transform8, sub8x8=sub8x8,
+               qm=qm)
     fr = _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr,
                        sb_h)
 
@@ -1192,36 +1421,45 @@ def assemble(sym, st, mb_h: int, mb_w: int):
                mv=st["mv"].reshape(mb_h * 4, mb_w * 4, 2),
                ref=torch.clamp(st["ref"], min=-1).reshape(mb_h * 4, mb_w * 4),
                mb_intra=sym["mb_intra"].reshape(mb_h, mb_w))
+    if "t8" in sym:
+        ctx["t8"] = sym["t8"].reshape(mb_h, mb_w)
     return rec, ctx
 
 
 def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp: int,
                  n_valid: int, force_intra, *, mb_h: int, mb_w: int, sr: int,
                  intra_only: bool, chroma_qp_offset: int = 0,
-                 n_slices: int = 1):
+                 n_slices: int = 1, transform8: bool = False,
+                 sub8x8: bool = False, scaling_default: bool = False):
     """Encode one frame's decisions and residuals on the tensors' device.
 
     org_*: int planes.  ref_ups [R, 4, 4, H+2P, W+2P] uint8 phase-split
     quarter-pel planes of list 0 (most recent first; slots past ``n_valid``
     repeat the last); ref_us/ref_vs [R, H/2+2PC, W/2+2PC] padded chroma;
     force_intra [mb_h, mb_w] bool.  ``n_slices`` equal row-band slices
-    (must divide mb_h).  Returns (symbols dict of [nmb, ...] int32 tensors
-    in raster order, (rec_y, rec_u, rec_v), ctx dict with nnz/mv/ref/
-    mb_intra)."""
+    (must divide mb_h).  High profile: ``transform8`` (per-MB 8x8
+    transform), ``sub8x8`` (P_8x8 sub-partitions), ``scaling_default`` (the
+    spec default scaling lists).  Returns (symbols dict of [nmb, ...] int32
+    tensors in raster order — with ``t8`` / ``sub`` and ``mvd_s`` when
+    those options are on — (rec_y, rec_u, rec_v), ctx dict with nnz/mv/
+    ref/mb_intra, and t8 with ``transform8``)."""
     if mb_h % n_slices:
         raise ValueError(f"n_slices {n_slices} must divide mb_h {mb_h}")
     sb_h = mb_h // n_slices
     R = ref_ups.shape[0]
     nmb = mb_h * mb_w
     if intra_only:
-        mv_q = torch.zeros((nmb, R, 9, 2), dtype=torch.int32,
+        ns = len(slot_geometry(sub8x8))
+        mv_q = torch.zeros((nmb, R, ns, 2), dtype=torch.int32,
                            device=org_y.device)
-        sad_q = torch.zeros((nmb, R, 9), dtype=torch.int32,
+        sad_q = torch.zeros((nmb, R, ns), dtype=torch.int32,
                             device=org_y.device)
     else:
-        mv_q, sad_q = search(org_y, ref_ups, sr, qp, n_slices)
+        mv_q, sad_q = search(org_y, ref_ups, sr, qp, n_slices, sub8x8)
     sym, st = decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q,
                      sad_q, qp, n_valid, force_intra, sr=sr, sb_h=sb_h,
-                     intra_only=intra_only, chroma_qp_offset=chroma_qp_offset)
+                     intra_only=intra_only, chroma_qp_offset=chroma_qp_offset,
+                     transform8=transform8, sub8x8=sub8x8,
+                     scaling_default=scaling_default)
     rec, ctx = assemble(sym, st, mb_h, mb_w)
     return sym, rec, ctx

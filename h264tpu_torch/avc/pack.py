@@ -31,6 +31,8 @@ from .params import AVCParams, write_slice_header, SLICE_I, SLICE_P
 WIN_SKIP, WIN_16x16, WIN_16x8, WIN_8x16, WIN_P8x8, WIN_I4, WIN_I16, \
     WIN_P8SUB = range(8)
 _N_PARTS = {WIN_16x16: 1, WIN_16x8: 2, WIN_8x16: 2, WIN_P8x8: 4}
+# parts per sub_mb_type (spec Table 7-14: 8x8, 8x4, 4x8, 4x4)
+_SUB_N_PARTS = (1, 2, 2, 4)
 
 
 def _nnz_planes(sym, mb_h: int, mb_w: int):
@@ -105,7 +107,7 @@ def _write_chroma_residual(w, cdc, cac, cbp_chroma, nnz_c, mby, mbx,
 
 
 def _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i, use_i16: bool,
-                         in_p: bool, top_row=0):
+                         in_p: bool, top_row=0, transform_8x8: bool = False):
     """mb_type .. residual for one intra MB of an I or P slice."""
     cbp_luma = int(sym["cbp_luma"][i])
     cbp_chroma = int(sym["cbp_chroma"][i])
@@ -115,6 +117,8 @@ def _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i, use_i16: bool,
                                 cbp_luma != 0))
     else:
         w.ue(base + MB_I4x4)
+        if transform_8x8:
+            w.u(0, 1)          # transform_size_8x8_flag: we emit I4x4
         flags = np.asarray(sym["i4flags"][i])
         for k in range(16):
             w.u(int(flags[k, 0]), 1)
@@ -142,8 +146,6 @@ def pack_i_slice(sym, p: AVCParams, qp: int, frame_num: int = 0,
                  row0: int = 0, n_rows: int = None) -> bytes:
     """Pack an all-intra frame's symbols into one I/IDR slice RBSP
     covering MB rows [row0, row0 + n_rows) (a row-band slice)."""
-    if p.transform_8x8:
-        raise NotImplementedError("8x8 transform is not ported")
     mb_h, mb_w = p.mb_h, p.mb_w
     n_rows = mb_h - row0 if n_rows is None else n_rows
     nnz_y, nnz_c = _nnz_planes(sym, mb_h, mb_w)
@@ -155,7 +157,7 @@ def pack_i_slice(sym, p: AVCParams, qp: int, frame_num: int = 0,
         mby, mbx = i // mb_w, i % mb_w
         _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i,
                              use_i16=win[i] == WIN_I16, in_p=False,
-                             top_row=row0)
+                             top_row=row0, transform_8x8=p.transform_8x8)
     w.u(1, 1)
     return w.to_bytes()
 
@@ -164,8 +166,8 @@ def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
                  num_ref: int, row0: int = 0, n_rows: int = None) -> bytes:
     """Pack a P frame's symbols into one P slice RBSP covering MB rows
     [row0, row0 + n_rows)."""
-    if p.transform_8x8 or p.cabac:
-        raise NotImplementedError("8x8 transform and CABAC are not ported")
+    if p.cabac:
+        raise NotImplementedError("CABAC is not ported")
     mb_h, mb_w = p.mb_h, p.mb_w
     n_rows = mb_h - row0 if n_rows is None else n_rows
     nnz_y, nnz_c = _nnz_planes(sym, mb_h, mb_w)
@@ -187,31 +189,56 @@ def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
         if wc in (WIN_I4, WIN_I16):
             _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i,
                                  use_i16=wc == WIN_I16, in_p=True,
-                                 top_row=row0)
+                                 top_row=row0, transform_8x8=p.transform_8x8)
             continue
-        if wc == WIN_P8SUB:
-            raise NotImplementedError("sub-8x8 partitions are not ported")
-        mb_type = {WIN_16x16: 0, WIN_16x8: 1, WIN_8x16: 2, WIN_P8x8: 3}[wc]
+        mb_type = {WIN_16x16: 0, WIN_16x8: 1, WIN_8x16: 2, WIN_P8x8: 3,
+                   WIN_P8SUB: 3}[wc]
         w.ue(mb_type)
-        nparts = _N_PARTS[wc]
-        if wc == WIN_P8x8:
-            for _ in range(4):
-                w.ue(0)                           # sub_mb_type = P_L0_8x8
-        if num_ref > 1:
-            r = int(ri[i])
-            for _ in range(nparts):
-                if num_ref == 2:
-                    w.u(1 - r, 1)
-                else:
-                    w.ue(r)
-        for pi in range(nparts):
-            w.se(int(mvd[i, pi, 0]))
-            w.se(int(mvd[i, pi, 1]))
+        if wc == WIN_P8SUB:
+            # P_8x8 with per-cell sub_mb_type (spec 7.3.5.2): sub types,
+            # then ref_idx per 8x8, then MVDs in sub-block order
+            subs = [int(s) for s in sym["sub"][i]]
+            for s in subs:
+                w.ue(s)
+            if num_ref > 1:
+                r = int(ri[i])
+                for _ in range(4):
+                    if num_ref == 2:
+                        w.u(1 - r, 1)
+                    else:
+                        w.ue(r)
+            mvd_s = np.asarray(sym["mvd_s"][i])
+            for c, s in enumerate(subs):
+                for pi in range(_SUB_N_PARTS[s]):
+                    w.se(int(mvd_s[c, pi, 0]))
+                    w.se(int(mvd_s[c, pi, 1]))
+        else:
+            nparts = _N_PARTS[wc]
+            if wc == WIN_P8x8:
+                for _ in range(4):
+                    w.ue(0)                       # sub_mb_type = P_L0_8x8
+            if num_ref > 1:
+                r = int(ri[i])
+                for _ in range(nparts):
+                    if num_ref == 2:
+                        w.u(1 - r, 1)
+                    else:
+                        w.ue(r)
+            for pi in range(nparts):
+                w.se(int(mvd[i, pi, 0]))
+                w.se(int(mvd[i, pi, 1]))
         cbp_luma = int(sym["cbp_luma"][i])
         cbp_chroma = int(sym["cbp_chroma"][i])
         cbp = cbp_luma | (cbp_chroma << 4)
         w.ue(int(CBP_TO_CODENUM_INTER[cbp]))
         if cbp > 0:
+            no_small = wc != WIN_P8SUB or \
+                all(int(s) == 0 for s in sym["sub"][i])
+            if p.transform_8x8 and cbp_luma > 0 and no_small:
+                # the flag is present when luma is coded and no
+                # partition is below 8x8 (spec 7.3.5
+                # NoSubMbPartSizeLessThan8x8Flag)
+                w.u(int(sym["t8"][i]) if "t8" in sym else 0, 1)
             w.se(0)
             _write_luma_residual(w, np.asarray(sym["zz"][i]), cbp_luma,
                                  nnz_y, mby, mbx, False, top_by=row0 * 4)

@@ -5,6 +5,9 @@ Port of ``h264tpu/avc/quant_jax.py`` (the device twin of the host model
 int (the port has no rate control).  The conformant path uses the JM 18.5
 rounding offsets 682/342 in Q11 and the CAVLC level clamp; ``offsets`` carries
 the JVT-N011 adaptive-rounding state instead, broadcast against the blocks.
+``mf``/``ils`` carry the High-profile weighted LevelScale / InvLevelScale
+tables [6, 4, 4] of a scaling matrix (``qmatrix.enc_tables_default``) as
+int32 tensors on the blocks' device; None means the flat tables.
 The 4x4 Hadamards are butterflies: CUDA has no int32 matrix product.
 """
 
@@ -30,7 +33,8 @@ def _mf(rem: int, device) -> torch.Tensor:
 
 
 def quant4x4(w: torch.Tensor, qp: int, intra: bool,
-             offsets: torch.Tensor = None) -> torch.Tensor:
+             offsets: torch.Tensor = None,
+             mf: torch.Tensor = None) -> torch.Tensor:
     """Signed levels of [..., 4, 4] coefficients.  ``offsets``: Q11 rounding
     offsets broadcastable to ``w`` (adaptive rounding); None = 682/342."""
     per, rem = qp // 6, qp % 6
@@ -38,26 +42,34 @@ def quant4x4(w: torch.Tensor, qp: int, intra: bool,
         off = (OFFSET_INTRA if intra else OFFSET_INTER) << (4 + per)
     else:
         off = offsets.to(torch.int32) << (4 + per)
-    lev = (torch.abs(w) * _mf(rem, w.device) + off) >> (Q_BITS + per)
+    m = _mf(rem, w.device) if mf is None else mf[rem]
+    lev = (torch.abs(w) * m + off) >> (Q_BITS + per)
     lev = torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
     return torch.sign(w) * lev
 
 
-def ar_fadjust(w: torch.Tensor, lev: torch.Tensor, qp: int) -> torch.Tensor:
+def ar_fadjust(w: torch.Tensor, lev: torch.Tensor, qp: int,
+               mf: torch.Tensor = None) -> torch.Tensor:
     """JVT-N011 per-position rounding adjustment (quant4x4_around.c:96):
     ``(W * (scaled - (|level| << q_bits)) + (1 << q_bits)) >> (q_bits + 1)``
     where the coefficient quantized to a nonzero level, else 0."""
     per, rem = qp // 6, qp % 6
     qbits = Q_BITS + per
     la = torch.abs(lev)
-    scaled = torch.abs(w) * _mf(rem, w.device)
+    scaled = torch.abs(w) * (_mf(rem, w.device) if mf is None else mf[rem])
     adj = (AR_WEIGHT * (scaled - (la << qbits)) + (1 << qbits)) >> (qbits + 1)
     return torch.where((w != 0) & (la != 0), adj, 0)
 
 
-def dequant4x4(lev: torch.Tensor, qp: int) -> torch.Tensor:
-    v = device_const(f"v{qp % 6}", DEQUANT_COEF[qp % 6], lev.device)
-    return (lev * v) << (qp // 6)
+def dequant4x4(lev: torch.Tensor, qp: int,
+               ils: torch.Tensor = None) -> torch.Tensor:
+    """Flat: (lev * V) << per.  Weighted (``ils`` = dequant_coef *
+    qmatrix): ((lev * ILS) << per + 8) >> 4, the same at qmatrix 16."""
+    per, rem = qp // 6, qp % 6
+    if ils is None:
+        v = device_const(f"v{rem}", DEQUANT_COEF[rem], lev.device)
+        return (lev * v) << per
+    return (((lev * ils[rem]) << per) + 8) >> 4
 
 
 def zigzag(levels: torch.Tensor) -> torch.Tensor:
@@ -88,17 +100,19 @@ def hadamard4x4_fwd(dc: torch.Tensor) -> torch.Tensor:
     return _h4(dc) >> 1
 
 
-def quant_dc16(h: torch.Tensor, qp: int) -> torch.Tensor:
+def quant_dc16(h: torch.Tensor, qp: int,
+               mf4: torch.Tensor = None) -> torch.Tensor:
     per, rem = qp // 6, qp % 6
-    mf = int(QUANT_COEF[rem, 0, 0])
+    mf = int(QUANT_COEF[rem, 0, 0]) if mf4 is None else mf4[rem, 0, 0]
     off = OFFSET_INTRA << (4 + per)
     lev = (torch.abs(h) * mf + (off << 1)) >> (Q_BITS + per + 1)
     return torch.sign(h) * torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
 
 
-def dequant_dc16(lev: torch.Tensor, qp: int) -> torch.Tensor:
+def dequant_dc16(lev: torch.Tensor, qp: int,
+                 ils: torch.Tensor = None) -> torch.Tensor:
     per, rem = qp // 6, qp % 6
-    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16
+    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16 if ils is None else ils[rem, 0, 0]
     return (((_h4(lev) * v16) << per) + 32) >> 6
 
 
@@ -110,20 +124,22 @@ def hadamard2x2_fwd(dc: torch.Tensor) -> torch.Tensor:
                         a - b - c + e], dim=-1)
 
 
-def quant_dc_chroma(h: torch.Tensor, qpc: int, intra: bool) -> torch.Tensor:
+def quant_dc_chroma(h: torch.Tensor, qpc: int, intra: bool,
+                    mf4: torch.Tensor = None) -> torch.Tensor:
     per, rem = qpc // 6, qpc % 6
-    mf = int(QUANT_COEF[rem, 0, 0])
+    mf = int(QUANT_COEF[rem, 0, 0]) if mf4 is None else mf4[rem, 0, 0]
     off = (OFFSET_INTRA if intra else OFFSET_INTER) << (4 + per)
     lev = (torch.abs(h) * mf + (off << 1)) >> (Q_BITS + per + 1)
     return torch.sign(h) * torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
 
 
-def dequant_dc_chroma(lev: torch.Tensor, qpc: int) -> torch.Tensor:
+def dequant_dc_chroma(lev: torch.Tensor, qpc: int,
+                      ils: torch.Tensor = None) -> torch.Tensor:
     """[..., 4] levels -> [..., 2, 2] dequantized DC."""
     per, rem = qpc // 6, qpc % 6
     l0, l1, l2, l3 = lev.to(torch.int32).unbind(-1)
     t = torch.stack([l0 + l1 + l2 + l3, l0 - l1 + l2 - l3,
                      l0 + l1 - l2 - l3, l0 - l1 - l2 + l3], dim=-1)
-    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16
+    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16 if ils is None else ils[rem, 0, 0]
     return (((t * v16) << per) >> 5).reshape(*lev.shape[:-1], 2, 2)
 

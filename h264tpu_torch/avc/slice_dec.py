@@ -1,7 +1,9 @@
 """Standard H.264 decoder, CAVLC progressive (host model).
 
 Decodes H.264 Annex-B streams bit-exactly: I/IDR and P slices (every P
-partition and sub-partition type), B slices without direct prediction,
+partition and sub-partition type), High profile's 8x8 transform of inter
+MBs and scaling lists (SPS/PPS, spec fall-back rules and default matrices),
+B slices without direct prediction,
 intra 4x4/16x16 and I_PCM, P_Skip, explicit weighted prediction,
 multi-ref sliding-window DPB with long-term reference pictures (MMCO ops
 1-6) and reference list modification, POC types 0/1/2 with display-order
@@ -12,8 +14,8 @@ slice-restricted availability), mb_qp_delta, data partitioning (NAL
 ``JM/ldecod/src/{image.c:809 decode_one_frame, mb_read.c:1139,
 read_comp_cavlc.c, mb_prediction.c}``.
 
-Raise ``NotImplementedError``: CABAC, the 8x8 transform, scaling lists,
-FMO, B direct prediction (B_Skip, B_Direct_16x16, B_8x8), MVC, error
+Raise ``NotImplementedError``: CABAC, Intra 8x8 (I_NxN with
+transform_size_8x8_flag), FMO, B direct prediction (B_Skip, B_Direct_16x16, B_8x8), MVC, error
 concealment, fields/MBAFF, 4:2:2/4:4:4/>8-bit.
 
 The port's own copy of ``h264tpu/avc/slice_dec.py``; it imports nothing
@@ -32,7 +34,10 @@ from . import cavlc as CV
 from . import inter as INTER
 from .tables import BLOCK_SCAN, BLOCK_SCAN_INV, CODENUM_TO_CBP_INTRA, \
     CODENUM_TO_CBP_INTER, mb_type_i16_parse
-from .deblock import DeblockContext, deblock_frame
+from . import native as AN
+from . import quant8 as Q8
+from . import qmatrix as QM
+from .deblock import DeblockContext
 
 
 def parse_sps(rbsp: bytes) -> dict:
@@ -51,7 +56,7 @@ def parse_sps(rbsp: bytes) -> dict:
             raise NotImplementedError(">8-bit coding")
         r.u(1)                              # qpprime_y_zero_transform_bypass
         if r.u(1):                          # seq_scaling_matrix_present
-            raise NotImplementedError("scaling lists is not ported")
+            s["seq_scaling"] = QM.parse_scaling_block(r, 8)
     s["log2_max_frame_num"] = r.ue() + 4
     s["poc_type"] = r.ue()
     if s["poc_type"] == 0:
@@ -183,14 +188,15 @@ def parse_pps(rbsp: bytes) -> dict:
     if p["constrained_intra"]:
         raise NotImplementedError("constrained intra pred")
     p["redundant_pic_cnt"] = r.u(1)
+    p["transform_8x8"] = 0
     p["second_chroma_qp_offset"] = p["chroma_qp_offset"]
     # more_rbsp_data: bits remain before the rbsp_stop_one_bit
     stop = int(np.flatnonzero(r._bits)[-1])
     if r.pos < stop:                        # High-profile PPS extension
-        if r.u(1):                          # transform_8x8_mode_flag
-            raise NotImplementedError("the 8x8 transform is not ported")
+        p["transform_8x8"] = r.u(1)
         if r.u(1):                          # pic_scaling_matrix_present
-            raise NotImplementedError("scaling lists is not ported")
+            p["pic_scaling"] = QM.parse_scaling_block(
+                r, 6 + 2 * p["transform_8x8"])
         p["second_chroma_qp_offset"] = r.se()
         if p["second_chroma_qp_offset"] != p["chroma_qp_offset"]:
             raise NotImplementedError("separate Cr QP offset")
@@ -352,6 +358,19 @@ class AVCDecoder:
         ctx.mb_qp = pic["mb_qp"]
         ctx.mb_intra = pic["mb_intra"]
         ctx.nnz = pic["nnz"]
+        t8 = pic["transform8"]
+        if t8.any():
+            # 8x8-transform MBs: bS tests the 8x8 TRANSFORM block's coded
+            # status (spec 8.7.2.1), so spread each 8x8's aggregate over
+            # its four 4x4 cells (JM cbp_blk semantics; the per-4x4
+            # values stay as-read for CAVLC nC only)
+            nnz = pic["nnz"]
+            q = nnz.reshape(pic["mb_h"] * 2, 2,
+                            pic["mb_w"] * 2, 2).sum(axis=(1, 3))
+            q = np.repeat(np.repeat(q, 2, 0), 2, 1)
+            m8 = np.repeat(np.repeat(t8, 4, 0), 4, 1)
+            ctx.nnz = np.where(m8, q, nnz)
+        ctx.transform8 = t8
         ctx.mv = pic["mv"]
         ctx.ref = pic["ref"]
         ctx.alpha_off, ctx.beta_off = pic["a_off"], pic["b_off"]
@@ -359,7 +378,7 @@ class AVCDecoder:
             ctx.mv1 = pic["mv1"]
             ctx.ref1 = pic["ref1"]
         if pic["disable_dbl"] != 1:
-            rec = deblock_frame(*rec, ctx)
+            rec = AN.deblock_frame(*rec, ctx)
         frame = tuple(np.asarray(pl, np.uint8) for pl in rec)
         self._order.append((pic.get("epoch", 0), pic["poc"]))
         if pic["ref_idc"] != 0:
@@ -660,6 +679,7 @@ class AVCDecoder:
                 mb_intra=np.zeros((mb_h, mb_w), bool),
                 decoded=np.zeros((mb_h, mb_w), bool),
                 erc_ref=None,
+                transform8=np.zeros((mb_h, mb_w), bool),
                 mb_qp=np.full((mb_h, mb_w), qp, np.int64))
         pic = self._pic
 
@@ -808,6 +828,10 @@ class _SliceDecoder:
             self.mb_intra = np.zeros((mb_h, mb_w), bool)
             self.mb_qp = np.full((mb_h, mb_w), qp, np.int64)
         self.nnz_c = np.zeros((2, mb_h * 2, mb_w * 2), np.int64)
+        self.qmat = QM.resolve_qmatrix(sps.get("seq_scaling"),
+                                       pps.get("pic_scaling"))
+        self.transform8 = pic["transform8"] if pic is not None else \
+            np.zeros((mb_h, mb_w), bool)
         self.i4_modes = np.full((mb_h * 4, mb_w * 4), -1, np.int64)
         self.mvf = INTER.MVField(mb_h, mb_w)
         # last set bit == rbsp_stop_one_bit; data remains while pos < it
@@ -821,6 +845,30 @@ class _SliceDecoder:
                 self.gmap[mb] != self.gmap[self.first_mb]:
             return False
         return mb >= self.first_mb
+
+    # --- weighted dequantization (High scaling lists; flat -> the
+    # JM-exact fast paths in avc/quant.py) ---
+    def _dq4(self, lev, qp, intra: bool, ci=None):
+        if self.qmat is None:
+            return Q.dequant4x4(lev, qp)
+        li = (0 if intra else 3) + (0 if ci is None else 1 + ci)
+        return QM.dequant4x4_w(lev, qp, self.qmat[li])
+
+    def _dqdc16(self, lev, qp):
+        if self.qmat is None:
+            return Q.dequant_dc16(lev, qp)
+        return QM.dequant_dc16_w(lev, qp, self.qmat[0])
+
+    def _dqdcc(self, lev, qpc, intra: bool, ci: int):
+        if self.qmat is None:
+            return Q.dequant_dc_chroma(lev, qpc)
+        return QM.dequant_dc_chroma_w(lev, qpc,
+                                      self.qmat[(1 if intra else 4) + ci])
+
+    def _dq8(self, lev, qp, intra: bool):
+        if self.qmat is None:
+            return Q8.dequant8x8(lev, qp)
+        return QM.dequant8x8_w(lev, qp, self.qmat[6 if intra else 7])
 
     # --- nC contexts (same derivation as the encoder) ---
     def _nc_luma(self, by, bx):
@@ -1079,11 +1127,21 @@ class _SliceDecoder:
         cbp = int(CODENUM_TO_CBP_INTER[
             self.top._tr(r, "coded_block_pattern", r.ue())])
         cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        t8 = False
+        no_small = mb_type in (0, 1, 2) or \
+            (mb_type in (3, 4) and all(s == 0 for s in subs))
+        if cbp_luma > 0 and self.pps["transform_8x8"] and no_small:
+            t8 = bool(self.top._tr(r, "transform_size_8x8_flag", r.u(1)))
+        self.transform8[mby, mbx] = t8
         qp = self._prev_qp(mby * self.mb_w + mbx)
         if cbp > 0:
             qp = (qp + self.top._tr(r, "mb_qp_delta", r.se()) + 52) % 52
         self.mb_qp[mby, mbx] = qp
-        self._decode_residual_luma(mby, mbx, cbp_luma, qp, intra16=False)
+        if t8:
+            self._decode_residual_luma8(mby, mbx, cbp_luma, qp)
+        else:
+            self._decode_residual_luma(mby, mbx, cbp_luma, qp,
+                                       intra16=False)
         self._decode_residual_chroma(mby, mbx, cbp_chroma, qp,
                                      intra=False)
 
@@ -1097,6 +1155,9 @@ class _SliceDecoder:
     def _decode_intra_mb(self, mby, mbx, intra_type):
         r = self.r
         by, bx = mby * 4, mbx * 4
+        if intra_type == 0 and self.pps["transform_8x8"] and \
+                r.u(1):                      # transform_size_8x8_flag
+            raise NotImplementedError("Intra 8x8 is not ported")
         if intra_type == 0:                  # I4x4
             modes = np.zeros(16, np.int64)
             for k in range(16):
@@ -1163,7 +1224,7 @@ class _SliceDecoder:
             nc = self._nc_luma(by, bx)
             dc_zz = CV.read_block(self.r_b, nc, 16)
             dc_lev = Q.unzigzag(dc_zz)
-            dc_deq = Q.dequant_dc16(dc_lev, qp)
+            dc_deq = self._dqdc16(dc_lev, qp)
             ac = np.zeros((4, 4, 4, 4), np.int64)
             for k in range(16):
                 y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
@@ -1177,7 +1238,7 @@ class _SliceDecoder:
                     ac[y4, x4] = Q.unzigzag(full)
                 else:
                     self.st_nnz[bby, bbx] = 0
-            deq = Q.dequant4x4(ac, qp)
+            deq = self._dq4(ac, qp, intra=True)
             deq[:, :, 0, 0] = dc_deq
             rec_b = Q.reconstruct(
                 pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3),
@@ -1234,7 +1295,7 @@ class _SliceDecoder:
         corner = self.rec_y[y - 1, x - 1] if (y > 0 and x > 0) else 0
         preds, _ = IP.pred4x4_all(top9, left4, corner, avail_t, avail_l,
                                   avail_tr)
-        deq = Q.dequant4x4(Q.unzigzag(zz), qp)
+        deq = self._dq4(Q.unzigzag(zz), qp, intra=True)
         self.rec_y[y:y + 4, x:x + 4] = Q.reconstruct(preds[mode],
                                                      Q.idct4x4(deq))
 
@@ -1258,12 +1319,45 @@ class _SliceDecoder:
                 self.st_nnz[bby, bbx] = 0
         if cbp_luma:
             pred = self.rec_y[y0:y0 + 16, x0:x0 + 16]
-            deq = Q.dequant4x4(lev, qp)
+            deq = self._dq4(lev, qp, intra=False)
             rec_b = Q.reconstruct(
                 pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3),
                 Q.idct4x4(deq))
             self.rec_y[y0:y0 + 16, x0:x0 + 16] = \
                 rec_b.transpose(0, 2, 1, 3).reshape(16, 16)
+
+    # --- High profile: 8x8 transform (spec 8.5.12.2; JM ldecod
+    # transform8x8.c itrans8x8 / read_comp_cavlc.c interleaved 4x4) ---
+    def _read_zz64_cavlc(self, mby, mbx, y8, x8):
+        """CAVLC 8x8 residual: four interleaved 4x4 blocks — coefficient
+        k of sub-block b4 sits at 8x8 zig-zag position 4*k + b4; each
+        sub-block keeps its own total_coeff for nC/nnz (spec 7.3.5.3.2,
+        JM read_comp_coeff_4x4_CAVLC with luma_transform_size_8x8_flag)."""
+        by, bx = mby * 4 + y8 * 2, mbx * 4 + x8 * 2
+        zz64 = np.zeros(64, np.int64)
+        for b4 in range(4):
+            bby, bbx = by + (b4 >> 1), bx + (b4 & 1)
+            nc = self._nc_luma(bby, bbx)
+            zz = CV.read_block(self.r_c, nc, 16)
+            self.st_nnz[bby, bbx] = int((zz != 0).sum())
+            zz64[4 * np.arange(16) + b4] = zz
+        return zz64
+
+    def _decode_residual_luma8(self, mby, mbx, cbp_luma, qp):
+        """Inter luma residual with the 8x8 transform."""
+        y0, x0 = mby * 16, mbx * 16
+        for b8 in range(4):
+            y8, x8 = b8 >> 1, b8 & 1
+            if not (cbp_luma & (1 << b8)):
+                self.st_nnz[mby * 4 + y8 * 2:mby * 4 + y8 * 2 + 2,
+                            mbx * 4 + x8 * 2:mbx * 4 + x8 * 2 + 2] = 0
+                continue
+            zz64 = self._read_zz64_cavlc(mby, mbx, y8, x8)
+            deq = self._dq8(Q8.unzigzag8(zz64), qp, intra=False)
+            yy, xx = y0 + y8 * 8, x0 + x8 * 8
+            pred = self.rec_y[yy:yy + 8, xx:xx + 8]
+            self.rec_y[yy:yy + 8, xx:xx + 8] = \
+                Q8.reconstruct8(pred, Q8.idct8x8(deq))
 
     def _decode_residual_chroma(self, mby, mbx, cbp_chroma, qp, intra,
                                 ch_mode=None):
@@ -1291,7 +1385,7 @@ class _SliceDecoder:
         if cbp_chroma > 0:
             for ci in range(2):
                 dc_zz = CV.read_block(r, -1, 4)
-                dc_deqs[ci] = Q.dequant_dc_chroma(dc_zz, qpc)
+                dc_deqs[ci] = self._dqdcc(dc_zz, qpc, intra, ci)
         acs = [np.zeros((2, 2, 4, 4), np.int64) for _ in range(2)]
         for ci in range(2):
             for by4 in range(2):
@@ -1307,7 +1401,7 @@ class _SliceDecoder:
                     else:
                         self.nnz_c[ci, cby, cbx] = 0
         for ci, rec_p in ((0, self.rec_u), (1, self.rec_v)):
-            deq = Q.dequant4x4(acs[ci], qpc) if cbp_chroma == 2 else \
+            deq = self._dq4(acs[ci], qpc, intra, ci) if cbp_chroma == 2 else \
                 np.zeros((2, 2, 4, 4), np.int64)
             deq[:, :, 0, 0] = dc_deqs[ci]
             rec_b = Q.reconstruct(

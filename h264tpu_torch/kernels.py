@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function.  At first use it
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``h264tpu_torch/_build/`` (named by a hash of the source, so an edited source
 is rebuilt) and loaded with ``ctypes``.  Importing this module builds nothing.
+The native host stages (``csrc/avc_native.cpp``) build the same way with
+``g++`` (:func:`gxx_path`), through ``avc/native.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,15 @@ def nvcc_path() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
                        "the kernels in h264tpu_torch/csrc")
+
+
+def gxx_path() -> str:
+    """The host C++ compiler that builds the port's native host stages."""
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: a host C++ compiler is needed to build "
+                       "h264tpu_torch/csrc/avc_native.cpp")
 
 
 def library_path(name: str) -> Path:

@@ -181,17 +181,35 @@ def test_no_device_without_a_card_raises():
 UNPORTED = {
     "cabac": (dict(cabac=True, profile_idc=77), {}),
     "b_frames": ({}, dict(bframes=1)),
-    "transform_8x8": (dict(transform_8x8=True, profile_idc=100), {}),
-    "sub8x8": ({}, dict(sub8x8=True)),
     "weighted_pred": (dict(weighted_pred=True, profile_idc=77), {}),
     "mesh": ({}, dict(mesh=object())),
     "data_partitioning": ({}, dict(data_partitioning=True)),
-    "scaling_lists": (dict(scaling_matrix="default", profile_idc=100), {}),
 }
 
 
-@pytest.mark.parametrize("name", list(UNPORTED) + ["rate_control"])
+def _intra8x8_stream():
+    """An IDR whose first MB is I_NxN with transform_size_8x8_flag = 1 (no
+    encoder of the repo emits one)."""
+    from h264tpu_torch.avc.params import (assemble_stream,
+                                          write_slice_header, SLICE_I)
+    from h264tpu_torch.entropy.bitio import BitWriter
+    p = AVCParams(width=32, height=32, profile_idc=100, transform_8x8=True)
+    w = BitWriter()
+    write_slice_header(w, p, SLICE_I, 0, True, p.qp)
+    w.ue(0)                                   # mb_type I_NxN
+    w.u(1, 1)                                 # transform_size_8x8_flag
+    w.u(0xFFFF, 16)                           # what an Intra 8x8 MB reads
+    w.u(1, 1)
+    return assemble_stream(p, [(True, w.to_bytes())])
+
+
+@pytest.mark.parametrize("name", list(UNPORTED)
+                         + ["rate_control", "decoder_intra8x8"])
 def test_unported_option_raises(name):
+    if name == "decoder_intra8x8":
+        with pytest.raises(NotImplementedError, match="Intra 8x8"):
+            AVCDecoder().decode(_intra8x8_stream())
+        return
     if name == "rate_control":
         codec = DeviceAVCCodec(AVCParams(width=32, height=32), device="cpu")
         with pytest.raises(NotImplementedError):

@@ -123,3 +123,58 @@ def test_avc_card_cif_stream_decodes_to_recon():
     for r, planes in zip(res, AVCDecoder().decode(stream)):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
+
+
+# the two High QCIF configurations of chip_smoke.py: every option of the
+# slice, and the 8x8 transform alone (whose P slices the C packer writes)
+HIGH = {"all": (dict(transform_8x8=True, scaling_matrix="default"), True),
+        "t8": (dict(transform_8x8=True), False)}
+
+
+def _high_codec(name, device):
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.params import AVCParams
+    fields, sub8x8 = HIGH[name]
+    p = AVCParams(width=176, height=144, qp=28, num_ref_frames=1,
+                  profile_idc=100, **fields)
+    return DeviceAVCCodec(p, intra_period=0, search_range=8, n_slices=3,
+                          sub8x8=sub8x8, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(HIGH))
+def test_avc_high_card_stream_equals_cpu_stream(name):
+    """The High-profile QCIF stream (3 slices) from the card equals the
+    CPU's, which the CPU tests hold against the JAX package."""
+    _need_card()
+    frames = _blocky_frames(3, 144, 176)
+    _, s_cpu = _high_codec(name, "cpu").encode_sequence(frames)
+    _, s_gpu = _high_codec(name, "cuda").encode_sequence(frames)
+    assert s_gpu == s_cpu
+
+
+@pytest.mark.gpu
+def test_native_stages_equal_twins_on_card_frames():
+    """On a P frame encoded on the card, the native deblock and packer give
+    the numpy twins' planes and bytes."""
+    _need_card()
+    from h264tpu_torch.avc import device_enc as DE, native as AN, pack as PK
+    from h264tpu_torch.avc.deblock import deblock_frame
+    from h264tpu_torch.avc.device_codec import (host_context, host_symbols,
+                                                deblock_context)
+    from h264tpu_torch.avc.params import SLICE_P
+    codec = _high_codec("t8", "cuda")
+    p = codec.p
+    frames = _blocky_frames(2, 144, 176)
+    sym, rec, _ = codec.encode_frame(frames[0], [], 28)
+    sym, rec, ctx = codec.encode_frame(
+        frames[1], [DE.prep_ref(*rec, codec.sr)], 28)
+    sym, (ctx_np, rec_np) = host_symbols(sym), host_context(ctx, rec)
+    dctx = deblock_context(ctx_np, p.mb_h, p.mb_w, 28, 0, False)
+    for a, b in zip(AN.deblock_frame(*rec_np, dctx),
+                    deblock_frame(*rec_np, dctx)):
+        np.testing.assert_array_equal(a, b)
+    for s in range(3):
+        rows = dict(row0=3 * s, n_rows=3)
+        assert AN.pack_slice(sym, p, SLICE_P, 28, 1, False, 0, 1, **rows) \
+            == PK.pack_p_slice(sym, p, 28, frame_num=1, num_ref=1, **rows)

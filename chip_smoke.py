@@ -2,7 +2,7 @@
 """Drive the PyTorch port (h264tpu_torch) on one CUDA card: the fractal codec
 and the conformant H.264 encoder.
 
-    python3 chip_smoke.py [--seed 0] [--profile-dir DIR]
+    python3 chip_smoke.py [--seed 0] [--trace] [--profile-dir DIR]
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -29,8 +29,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``bench.py`` AVC settings (QP 28, SR 8, one reference): 1 IDR + 4 P CIF
    frames in 9 slices, decoded bit-exactly by the port's ``AVCDecoder``, with
    per-frame bits and PSNR, steady-state P fps, kbps at 30 fps, device ms per
-   stage, host ms of the packer and the deblock, and the kernel launches and
-   summed kernel time of one P frame (torch.profiler); a QCIF stream in 3
+   stage, host ms of the packer and the deblock, and with ``--trace`` the
+   kernel launches and summed kernel time of one P frame (torch.profiler,
+   off by default: the High CIF trace alone takes ~190 s); a QCIF stream in 3
    slices encoded on the card and on the CPU, which must be equal byte for
    byte; and 1 IDR + 1 P 1920x1088 frames in 17 slices, encode only, with
    the same stages and the peak device memory;
@@ -38,19 +39,38 @@ Phases, in order; any failure exits non-zero before the result line:
    configuration (High, per-MB 8x8 transform, P_8x8 sub-partitions, QP 28,
    SR 8, one reference, one slice): 1 IDR + 4 P CIF frames decoded
    bit-exactly, per-frame counts of 8x8-transform and sub-partitioned MBs
-   (both must occur), stages, host ms, fps, launches and summed kernel
-   time of one P frame; QCIF in 3 slices on the card and on the CPU, equal
+   (both must occur), stages, host ms, fps, and with ``--trace`` launches
+   and summed kernel time of one P frame; QCIF in 3 slices on the card and
+   on the CPU, equal
    byte for byte, with (i) 8x8 + sub-8x8 + default scaling lists and (ii)
    the 8x8 transform alone (packed by the C packer); 1 IDR + 1 P 1080p in
    17 slices, encode only, with stages and peak device memory;
-7. the native host stages (``csrc/avc_native.cpp``, built with g++ in phase
-   1) against their numpy twins on frames of phases 5 and 6: equal planes
-   and bytes, with both times.
+7. the encoder's hierarchical-B CABAC path at ``bench.py``'s
+   ``avc_cif_hierb_cabac`` configuration (CIF, QP 28, Main, CABAC, 3
+   references, SR 8, 9 slices, bframes=3 hierarchical, 9 frames, after a
+   warm encode of 5): the stream decodes bit-exactly with the port's
+   ``AVCDecoder``, frame types in display order ``IDR B B B P B B B P``,
+   some B frame has direct or skip MBs and some has Bi MBs; sequence fps
+   as bench defines it (frames / seconds), ms per B frame, and one B
+   frame's device stages (Stage A and B per list, the scan's eager first
+   step, capture and replays) with its CABAC pack and deblock host ms;
+   with ``--trace`` the launches of one B frame;
+8. QCIF B streams on the card and on the CPU, equal byte for byte:
+   hierarchical-B CABAC in 3 slices (5 frames) and IbbP CAVLC with
+   ``bframes=2`` (4 frames);
+9. hierarchical-B CABAC at 1920x1088 in 17 slices (level 4.2), IDR plus
+   one GOP of 4, encode only: per-frame host ms of the CABAC packer and
+   the deblock, the device stages of the P anchor and of one B frame, and
+   the peak device memory;
+10. the native host stages (``csrc/avc_native.cpp``, built with g++ in
+   phase 1) against their numpy twins on frames of phases 5 and 6: equal
+   planes and bytes, with both times.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Frames are made from ``--seed``: a
 blocky random texture shifted per frame, and for the High phases a smooth
-one with noise whose motion varies inside an 8x8.
+one with noise whose motion varies inside an 8x8 (also the hierarchical-B
+CIF phase's).
 """
 
 from __future__ import annotations
@@ -489,13 +509,17 @@ HIGH_BDRATE = dict(transform_8x8=True, sub8x8=True)
 class HostStageRecorder:
     """Records, inside ``with``, every call of the native host stages and
     the host symbols of each frame that ``DeviceAVCCodec`` makes (their
-    arguments and outputs), for the comparison with the numpy twins."""
+    arguments and outputs), for the comparison with the numpy twins, and
+    the host ms of each B frame's device encode (``b_ms``, synchronised)."""
 
     def __enter__(self):
-        from h264tpu_torch.avc import native as AN, device_codec as DC
-        self.packs, self.deblocks, self.syms = [], [], []
-        self._saved = pack, deblock, host_symbols = (
-            AN.pack_slice, AN.deblock_frame, DC.host_symbols)
+        import torch
+        from h264tpu_torch.avc import (native as AN, device_codec as DC,
+                                       device_enc as DE)
+        self.packs, self.deblocks, self.syms, self.b_ms = [], [], [], []
+        self._saved = pack, deblock, host_symbols, enc_b = (
+            AN.pack_slice, AN.deblock_frame, DC.host_symbols,
+            DE.encode_frame_b)
 
         def rec_pack(*a, **k):
             out = pack(*a, **k)
@@ -507,18 +531,32 @@ class HostStageRecorder:
             self.deblocks.append((a, out))
             return out
 
-        def rec_syms(sym):
-            out = host_symbols(sym)
+        def rec_syms(sym, *a):
+            out = host_symbols(sym, *a)
             self.syms.append(out)
             return out
 
-        AN.pack_slice, AN.deblock_frame, DC.host_symbols = (
-            rec_pack, rec_deblock, rec_syms)
+        def timed_enc_b(*a, **k):
+            t0 = time.perf_counter()
+            out = enc_b(*a, **k)
+            torch.cuda.synchronize()
+            self.b_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        (AN.pack_slice, AN.deblock_frame, DC.host_symbols,
+         DE.encode_frame_b) = rec_pack, rec_deblock, rec_syms, timed_enc_b
         return self
 
     def __exit__(self, *exc):
-        from h264tpu_torch.avc import native as AN, device_codec as DC
-        AN.pack_slice, AN.deblock_frame, DC.host_symbols = self._saved
+        from h264tpu_torch.avc import (native as AN, device_codec as DC,
+                                       device_enc as DE)
+        (AN.pack_slice, AN.deblock_frame, DC.host_symbols,
+         DE.encode_frame_b) = self._saved
+
+    def kinds(self):
+        """Frame kind per recorded frame in decode order: "B" where the
+        symbols carry list-1 fields."""
+        return ["B" if "ri0" in s else "I/P" for s in self.syms]
 
     def frame(self, i: int):
         """(deblock call, native pack calls) of frame ``i``."""
@@ -606,7 +644,7 @@ def avc_profile(codec, frame, ref_rec, profile_dir=None):
     return sum(e.count for e in kernels), (dev_us / 1e3 if dev_us else None)
 
 
-def phase_avc_cif(seed: int, profile_dir=None):
+def phase_avc_cif(seed: int, profile_dir=None, trace: bool = False):
     import torch
     from h264tpu_torch.avc.slice_dec import AVCDecoder
     H, W, n = 288, 352, 5
@@ -653,6 +691,8 @@ def phase_avc_cif(seed: int, profile_dir=None):
     stages = avc_stages(codec, frames[1], results[0].recon)
     print("[avc cif] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    if not trace:
+        return rec
     t0 = time.perf_counter()
     launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
                                    profile_dir)
@@ -712,7 +752,7 @@ def mb_counts(sym):
     return t8, sub
 
 
-def phase_avc_high_cif(seed: int, profile_dir=None):
+def phase_avc_high_cif(seed: int, profile_dir=None, trace: bool = False):
     """The tools/bdrate.py configuration at CIF, one slice, uncut."""
     import torch
     from h264tpu_torch.avc.slice_dec import AVCDecoder
@@ -770,6 +810,8 @@ def phase_avc_high_cif(seed: int, profile_dir=None):
     print("[avc high cif] one P frame by stage, ms between CUDA events: "
           + json.dumps({k: round(v, 3) for k, v in stages.items()}),
           flush=True)
+    if not trace:
+        return rec
     t0 = time.perf_counter()
     launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
                                    profile_dir)
@@ -841,6 +883,238 @@ def phase_avc_high_1080p(seed: int):
           flush=True)
 
 
+# bench.py avc_cif_hierb_cabac: AVCParams(352, 288, qp=28, profile_idc=77,
+# poc_type=0, num_ref_frames=3, cabac=True), TPUAVCCodec(intra_period=0,
+# search_range=8, n_slices=9, bframes=3, hierarchical=True)
+HIERB = dict(profile_idc=77, poc_type=0, num_ref_frames=3, cabac=True)
+
+
+def b_codec(H: int, W: int, n_slices: int, device: str, fields=HIERB,
+            bframes: int = 3, hierarchical: bool = True):
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    p = AVCParams(width=W, height=H, qp=AVC_QP, **fields)
+    return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
+                          n_slices=n_slices, bframes=bframes,
+                          hierarchical=hierarchical, device=device)
+
+
+def avc_b_stages(codec, frame, rec0, rec1, qp: int):
+    """Device ms of each stage of one B frame (CUDA events around the calls
+    ``device_enc.encode_frame_b`` makes), the second of two runs, with the
+    decision scan split as in :func:`avc_stages`.  The colocated motion is
+    all intra (an IDR's), which changes no stage's work."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE
+    p, sr = codec.p, codec.sr
+    mb_h, mb_w = p.mb_h, p.mb_w
+    y, u, v = (torch.as_tensor(pl).cuda().to(torch.int32) for pl in frame)
+    refs = [tuple(x[None] for x in DE.prep_ref(
+        *(torch.as_tensor(pl).cuda() for pl in rec), sr)) for rec in (rec0,
+                                                                     rec1)]
+    col_mv = torch.zeros((mb_h * 4, mb_w * 4, 2), dtype=torch.int32,
+                         device="cuda")
+    col_ref = torch.full((mb_h * 4, mb_w * 4), -1, dtype=torch.int32,
+                         device="cuda")
+    _, lam_me = DE.lambdas(qp)
+    rows = mb_h // codec.n_slices
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        marks = []
+        t0 = time.perf_counter()
+        ev[0].record()
+        found = []
+        for li, (ups, _, _) in enumerate(refs):
+            mv_int, _, pmv2 = DE._integer_search(
+                y, ups[:, 0, 0].to(torch.int32), sr, lam_me, band_rows=rows,
+                only16=True)
+            ev[1 + 2 * li].record()
+            mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me,
+                                            only16=True)
+            ev[2 + 2 * li].record()
+            found += [mv_q[:, 0].permute(1, 0, 2), sad_q[:, 0].permute(1, 0)]
+        sym, st = DE.decide_b(y, u, v, refs[0], refs[1], *found, col_mv,
+                              col_ref, qp, 1, 1, sr=sr, sb_h=rows,
+                              marks=marks)
+        ev[5].record()
+        DE.prep_ref(*DE.assemble_b(sym, st, mb_h, mb_w)[0], sr)
+        ev[6].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[6].synchronize()
+    check(len(marks) == 2, "the B decision scan recorded no capture marks")
+    return {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
+            "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
+            "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
+            "stage_b_subpel_l1": ev[3].elapsed_time(ev[4]),
+            "decision_scan": ev[4].elapsed_time(marks[0])
+            + marks[1].elapsed_time(ev[5]),
+            "decision_first_step": ev[4].elapsed_time(marks[0]),
+            "decision_replays": marks[1].elapsed_time(ev[5]),
+            "graph_capture": marks[0].elapsed_time(marks[1]),
+            "prep_ref": ev[5].elapsed_time(ev[6]),
+            "device_total": ev[0].elapsed_time(ev[6]),
+            "host_enqueue": host_ms}
+
+
+def b_profile(codec, frame, rec0, rec1, qp: int):
+    """(kernel launches, summed kernel ms) of one device B-frame encode from
+    torch.profiler's device events; summed ms is None when the profiler
+    records no device time."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from h264tpu_torch.avc import device_enc as DE
+    p, sr = codec.p, codec.sr
+    refs = [DE.prep_ref(*(torch.as_tensor(pl).cuda() for pl in rec), sr)
+            for rec in (rec0, rec1)]
+    y, u, v = codec.planes(frame)
+    h4, w4 = p.mb_h * 4, p.mb_w * 4
+    col = (torch.zeros((h4, w4, 2), dtype=torch.int32, device="cuda"),
+           torch.full((h4, w4), -1, dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        DE.encode_frame_b(y, u, v, *(x[None] for x in refs[0]),
+                          *(x[None] for x in refs[1]), *col, qp, 1, 1,
+                          mb_h=p.mb_h, mb_w=p.mb_w, sr=sr,
+                          n_slices=codec.n_slices)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    return sum(e.count for e in kernels), (dev_us / 1e3 if dev_us else None)
+
+
+def b_mb_counts(sym):
+    """(direct or skip MBs, Bi MBs) of a B frame's host symbols."""
+    win = np.asarray(sym["win"])
+    return int(((win == 0) | (win == 1)).sum()), int((win == 4).sum())
+
+
+def phase_avc_hierb_cif(seed: int, trace: bool = False):
+    """bench.py's avc_cif_hierb_cabac row on the card, uncut."""
+    import torch
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    H, W, n = 288, 352, 9
+    frames = smooth_frames(n, H, W, seed)
+    codec = b_codec(H, W, 9, "cuda")
+    codec.encode_sequence(frames[:5])                  # warm-up
+    torch.cuda.synchronize()
+    codec.host_ms = dict(pack=[], deblock=[])
+    with HostStageRecorder() as rec:
+        t0 = time.perf_counter()
+        results, stream = codec.encode_sequence(frames)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    types = [r.frame_type for r in results]
+    check(types == ["IDR", "B", "B", "B", "P", "B", "B", "B", "P"],
+          f"unexpected hier-B frame types {types}")
+    kinds = rec.kinds()
+    b_counts = [b_mb_counts(s) for s, k in zip(rec.syms, kinds) if k == "B"]
+    for i, r in enumerate(results):
+        print(f"[avc hierb cif] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f}", flush=True)
+        check(np.isfinite(r.psnr_y) and r.bits > 0, f"hier-B frame {i} failed")
+    print(f"[avc hierb cif] (direct or skip, Bi) MBs per B frame in decode "
+          f"order: {b_counts}", flush=True)
+    check(any(d > 0 for d, _ in b_counts), "no B frame chose direct or skip")
+    check(any(bi > 0 for _, bi in b_counts), "no B frame chose Bi")
+    t0 = time.perf_counter()
+    decoded = AVCDecoder().decode(stream)
+    dec_s = time.perf_counter() - t0
+    check(len(decoded) == n, "hier-B decoder returned a wrong frame count")
+    for i, (r, planes) in enumerate(zip(results, decoded)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"hier-B decoded frame {i} plane {c} != encoder recon")
+    bits = [r.bits for r in results]
+    pack_b = [ms for ms, k in zip(codec.host_ms["pack"], kinds) if k == "B"]
+    dbk_b = [ms for ms, k in zip(codec.host_ms["deblock"], kinds) if k == "B"]
+    pack_a = [ms for ms, k in zip(codec.host_ms["pack"], kinds) if k != "B"]
+    print(f"[avc hierb cif] 1 IDR + 2 P + 6 B: {seq_s:.3f} s, "
+          f"{n / seq_s:.3f} fps (bench.py's len(frames)/seconds), stream "
+          f"{len(stream)} bytes, {sum(bits) / n * 30 / 1e3:.3f} kbps at "
+          f"30 fps; decode bit-exact with the encoder recon in {dec_s:.3f} s",
+          flush=True)
+    print(f"[avc hierb cif] per B frame (host clock): device encode "
+          f"{np.mean(rec.b_ms):.1f} ms (synchronised), CABAC pack "
+          f"{np.mean(pack_b):.1f} ms, native deblock {np.mean(dbk_b):.1f} ms; "
+          f"CABAC pack of the IDR and P anchors "
+          f"{[round(x, 1) for x in pack_a]} ms", flush=True)
+    stages = avc_b_stages(codec, frames[2], results[0].recon,
+                          results[4].recon, AVC_QP + 1)
+    print("[avc hierb cif] one B frame (the reference B, QP 29) by stage, ms "
+          "between CUDA events: " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    if trace:
+        t0 = time.perf_counter()
+        launches, dev_ms = b_profile(codec, frames[2], results[0].recon,
+                                     results[4].recon, AVC_QP + 1)
+        busy = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
+        print(f"[avc hierb cif] one B frame: {launches} kernel launches, "
+              f"summed kernel time {busy} (torch.profiler, "
+              f"{time.perf_counter() - t0:.1f} s to trace)", flush=True)
+
+
+# the QCIF B configurations of the card-vs-CPU phase: hierarchical-B CABAC in
+# 3 slices (5 frames), IbbP CAVLC with bframes=2 (4 frames; the B pictures
+# need both anchors in the DPB)
+B_QCIF = {"hierb_cabac": (HIERB, 3, True, 5),
+          "ibbp_cavlc": (dict(profile_idc=77, poc_type=0, num_ref_frames=2),
+                         2, False, 4)}
+
+
+def phase_avc_b_card_vs_cpu(seed: int):
+    H, W = 144, 176
+    for name, (fields, bframes, hier, n) in B_QCIF.items():
+        frames = smooth_frames(n, H, W, seed)
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            res, streams[dev] = b_codec(H, W, 3, dev, fields, bframes,
+                                        hier).encode_sequence(frames)
+        check(streams["cuda"] == streams["cpu"],
+              f"AVC QCIF {name} stream from the card != stream from the CPU")
+        print(f"[avc qcif {name}] card stream == CPU stream "
+              f"({len(streams['cuda'])} bytes); types "
+              f"{''.join(r.frame_type[0] for r in res)}; bits "
+              f"{[r.bits for r in res]}", flush=True)
+
+
+def phase_avc_hierb_1080p(seed: int):
+    import torch
+    H, W = 1088, 1920
+    frames = blocky_frames(5, H, W, seed)
+    codec = b_codec(H, W, 17, "cuda", dict(HIERB, level_idc=42))
+    torch.cuda.reset_peak_memory_stats()
+    with HostStageRecorder() as rec:
+        t0 = time.perf_counter()
+        results, stream = codec.encode_sequence(frames)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    types = [r.frame_type for r in results]
+    check(types == ["IDR", "B", "B", "B", "P"]
+          and all(np.isfinite(r.psnr_y) for r in results),
+          f"AVC hier-B 1080p encode failed: {types}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, r in enumerate(results):
+        print(f"[avc hierb 1080p] frame {i} {r.frame_type} bits {r.bits} "
+              f"PSNR-Y {r.psnr_y:.3f}", flush=True)
+    print(f"[avc hierb 1080p] IDR + GOP of 4 encode {seq_s:.3f} s, stream "
+          f"{len(stream)} bytes, peak device memory {peak:.3f} GiB; per "
+          f"frame in decode order ({' '.join(rec.kinds())}): CABAC pack ms "
+          f"{[round(x, 1) for x in codec.host_ms['pack']]}, native deblock "
+          f"ms {[round(x, 1) for x in codec.host_ms['deblock']]}; device "
+          f"encode of each B frame (synchronised) "
+          f"{[round(x, 1) for x in rec.b_ms]} ms", flush=True)
+    stages = avc_stages(codec, frames[4], results[0].recon)
+    print("[avc hierb 1080p] the P anchor by stage, ms between CUDA events: "
+          + json.dumps({k: round(v, 3) for k, v in stages.items()}),
+          flush=True)
+    stages = avc_b_stages(codec, frames[2], results[0].recon,
+                          results[4].recon, AVC_QP + 1)
+    print("[avc hierb 1080p] one B frame (the reference B, QP 29) by stage, "
+          "ms between CUDA events: " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+
 def host_ms(fn, reps: int = 3) -> tuple:
     """(output of the first call, least host ms of ``reps`` calls)."""
     out, best = None, float("inf")
@@ -894,6 +1168,10 @@ def phase_native_vs_twin(cases):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="trace one AVC P frame per CIF phase and one B "
+                    "frame with torch.profiler (launches, summed kernel "
+                    "time); adds minutes")
     ap.add_argument("--profile-dir", default=None,
                     help="write the P-frame torch.profiler table here")
     args = ap.parse_args(argv)
@@ -916,14 +1194,18 @@ def main(argv=None) -> int:
                      args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
     timed("fractal qcif card vs cpu", phase_card_vs_cpu, args.seed)
-    rec_cif = timed("avc cif", phase_avc_cif, args.seed, args.profile_dir)
+    rec_cif = timed("avc cif", phase_avc_cif, args.seed, args.profile_dir,
+                    args.trace)
     timed("avc qcif card vs cpu", phase_avc_card_vs_cpu, args.seed)
     timed("avc 1080p", phase_avc_1080p, args.seed)
     rec_high = timed("avc high cif", phase_avc_high_cif, args.seed,
-                     args.profile_dir)
+                     args.profile_dir, args.trace)
     rec_qcif = timed("avc high qcif card vs cpu", phase_avc_high_card_vs_cpu,
                      args.seed)
     timed("avc high 1080p", phase_avc_high_1080p, args.seed)
+    timed("avc hier-B cabac cif", phase_avc_hierb_cif, args.seed, args.trace)
+    timed("avc qcif B card vs cpu", phase_avc_b_card_vs_cpu, args.seed)
+    timed("avc hier-B cabac 1080p", phase_avc_hierb_1080p, args.seed)
     timed("native vs twin", phase_native_vs_twin, [
         ("avc cif last P", rec_cif, -1), ("avc high cif IDR", rec_high, 0),
         ("avc high cif last P", rec_high, -1),

@@ -1,22 +1,25 @@
 """Sequence encoder for the conformant H.264 encoder on one device.
 
-Port of the IPPP branch of ``h264tpu/avc/tpu_codec.py`` ``TPUAVCCodec``:
-every frame's decisions and residuals come from ``avc/device_enc.py`` on the
-device; the host packs the CAVLC slices and applies the spec deblocking
-filter with the native C++ stages (``avc/native.py``), and assembles the
-Annex-B stream.  As in ``TPUAVCCodec``, P slices with P_8x8 sub-partitions
-are packed by the numpy packer (``avc/pack.py``): the C packer has no
-``sub_mb_type``.
+Port of ``h264tpu/avc/tpu_codec.py`` ``TPUAVCCodec``: every frame's
+decisions and residuals come from ``avc/device_enc.py`` on the device; the
+host packs the slices and applies the spec deblocking filter with the
+native C++ stages (``avc/native.py``), and assembles the Annex-B stream.
+As in ``TPUAVCCodec``, P slices with P_8x8 sub-partitions are packed by the
+numpy packer (``avc/pack.py``): the C packer has no ``sub_mb_type``; CABAC
+slices by the Python packer ``avc/pack_cabac.py``.
 Reference pictures stay on the device as phase-split quarter-pel planes.
-A frame's symbols come to the host at the same sync as its reconstruction,
-which the deblock needs before the next frame can start; its slices are
-packed after the next frame's device work has been queued.
+In IPPP a frame's symbols come to the host at the same sync as its
+reconstruction, which the deblock needs before the next frame can start;
+its slices are packed after the next frame's device work has been queued.
 
-Ported: IPPP with periodic IDR, CAVLC, full-RD mode decision with adaptive
-rounding and RD-gated decimation, row-band slices, multiple reference
-frames, and High profile's per-MB 8x8 transform, P_8x8 sub-partitions
-(``sub8x8``) and the spec default scaling lists.  The other options of
-``TPUAVCCodec`` raise ``NotImplementedError``.
+Ported: IPPP with periodic IDR, CAVLC and CABAC, full-RD mode decision with
+adaptive rounding and RD-gated decimation, row-band slices, multiple
+reference frames, High profile's per-MB 8x8 transform, P_8x8
+sub-partitions (``sub8x8``) and the spec default scaling lists, and B
+pictures (``bframes``: IbbP, or the dyadic hierarchical GOP of 4 with
+``hierarchical=True``) with spatial direct, under CAVLC or CABAC.  Weighted
+prediction, data partitioning, rate control and a device mesh raise
+``NotImplementedError``.
 
 Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 """
@@ -34,6 +37,7 @@ from . import conformance
 from . import device_enc as DE
 from . import native as AN
 from . import pack as PK
+from . import pack_cabac as PKC
 from .deblock import DeblockContext
 from .params import AVCParams, assemble_stream, SLICE_I, SLICE_P
 
@@ -46,23 +50,26 @@ class AVCFrameResult:
     recon: tuple          # (Y, U, V) uint8
 
 
-# symbol fields and their per-MB widths, as TPUAVCCodec transfers them; the
-# last three come only from the options that make them (t8: the 8x8
-# transform, sub/mvd_s: sub-8x8 partitions)
+# symbol fields and their per-MB widths, as TPUAVCCodec transfers them; t8,
+# sub and mvd_s come only from the options that make them (t8: the 8x8
+# transform, sub/mvd_s: sub-8x8 partitions), the last four only from B
+# frames (which have no "ri"/"mvd")
 _SYM_KEYS = (("win", 1), ("ri", 1), ("mvd", 8), ("i4flags", 32),
              ("i16mode", 1), ("i16dc", 16), ("cmode", 1), ("cbp_luma", 1),
              ("cbp_chroma", 1), ("zz", 256), ("cdc", 8), ("cac", 120),
-             ("mb_intra", 1), ("t8", 1), ("sub", 4), ("mvd_s", 32))
+             ("mb_intra", 1), ("t8", 1), ("sub", 4), ("mvd_s", 32),
+             ("ri0", 1), ("ri1", 1), ("mvd0", 2), ("mvd1", 2))
 _SYM_SHAPES = {"mvd": (4, 2), "i4flags": (16, 2), "zz": (16, 16),
                "cdc": (2, 4), "cac": (2, 2, 2, 15), "mvd_s": (4, 4, 2)}
 
 
-def host_symbols(sym: dict) -> dict:
-    """Device symbols -> the host arrays the packer reads: int16 of the
-    shapes ``tpu_codec._unpack_sym`` gives, in one transfer."""
+def host_symbols(sym: dict, dtype=torch.int16) -> dict:
+    """Device symbols -> the host arrays the packer reads, in one transfer:
+    int16 of the shapes ``tpu_codec._unpack_sym`` gives (I and P frames),
+    or int32 as ``TPUAVCCodec`` downloads a B frame's."""
     nmb = sym["win"].shape[0]
     keys = [(k, w) for k, w in _SYM_KEYS if k in sym]
-    flat = torch.cat([sym[k].reshape(nmb, -1).to(torch.int16)
+    flat = torch.cat([sym[k].reshape(nmb, -1).to(dtype)
                       for k, w in keys], 1).cpu().numpy()
     out, off = {}, 0
     for k, w in keys:
@@ -109,7 +116,7 @@ def deblock_context(ctx_np: dict, mb_h: int, mb_w: int, qp: int,
 
 
 class DeviceAVCCodec:
-    """Baseline/High CAVLC H.264 encoder with all pixel work on one device."""
+    """Baseline/Main/High H.264 encoder with all pixel work on one device."""
 
     def __init__(self, p: AVCParams, intra_period: int = 0,
                  search_range: int = 16, n_slices: int = 1, mesh=None, bframes: int = 0,
@@ -120,19 +127,40 @@ class DeviceAVCCodec:
         is the CUDA card (raises without one); pass "cpu" for the plain
         PyTorch path on the host."""
         unported = [
-            ("CABAC", p.cabac), ("B frames", bframes > 0 or hierarchical),
             ("weighted prediction", p.weighted_pred),
             ("a device mesh", mesh is not None),
             ("data partitioning", data_partitioning)]
         for what, asked in unported:
             if asked:
                 raise NotImplementedError(f"{what} is not ported")
+        # TPUAVCCodec's own limits
+        if sub8x8 and (p.cabac or bframes > 0):
+            raise NotImplementedError("P8x8 sub-partitions are "
+                                      "CAVLC-IPPP for now")
         if p.scaling_matrix is not None:
             if p.scaling_matrix != "default":
                 raise NotImplementedError("only the spec default "
                                           "matrices are supported")
             if p.profile_idc < 100:
                 raise ValueError("scaling lists need High profile")
+            if bframes > 0:
+                raise NotImplementedError("scaling lists in the B "
+                                          "driver are not wired")
+        if bframes > 0:
+            if p.poc_type != 0:
+                raise ValueError("bframes needs AVCParams(poc_type=0)")
+            if p.profile_idc == 66:
+                raise ValueError("B slices need Main profile (77)")
+            if hierarchical and bframes != 3:
+                raise ValueError("hierarchical GOP supports bframes=3 "
+                                 "(dyadic GOP of 4) for now")
+            if hierarchical and p.num_ref_frames < 3:
+                # the decoder's DPB must hold {prev anchor, ref B, anchor}
+                raise ValueError("hierarchical GOP needs "
+                                 "num_ref_frames >= 3")
+        if p.transform_8x8 and bframes > 0:
+            raise NotImplementedError("8x8 transform in the B driver "
+                                      "is not wired yet")
         if p.slice_groups != 1:
             raise ValueError("the device path has no FMO")
         if p.mb_h % n_slices:
@@ -143,6 +171,8 @@ class DeviceAVCCodec:
         self.sr = search_range
         self.n_slices = n_slices
         self.sub8x8 = sub8x8
+        self.bframes = bframes
+        self.hierarchical = hierarchical
         conformance.check_params(p)
         self._dummy = None
         # host milliseconds per frame of the slice packer and the deblock
@@ -167,13 +197,23 @@ class DeviceAVCCodec:
                             dtype=torch.int32, device=dev))
         return self._dummy
 
-    def encode_frame(self, yuv, refs, qp: int, force=None):
+    def planes(self, yuv):
+        """(Y, U, V) uint8 planes -> int32 tensors on the codec's device."""
+        return tuple(torch.as_tensor(np.ascontiguousarray(pl, np.uint8))
+                     .to(self.device).to(torch.int32) for pl in yuv)
+
+    def prep(self, rec8):
+        """``prep_ref`` of a deblocked (Y, U, V) uint8 reconstruction."""
+        return DE.prep_ref(*(torch.as_tensor(pl).to(self.device)
+                             for pl in rec8), self.sr)
+
+    def encode_frame(self, yuv, refs, qp: int, force=None, n_refs=None):
         """Device encode of one frame against ``refs`` (a list of
-        ``prep_ref`` entries, newest first; empty for an IDR).  Returns the
+        ``prep_ref`` entries, newest first; empty for an IDR), stacked to
+        ``n_refs`` entries (default ``num_ref_frames``).  Returns the
         device (sym, rec, ctx) of ``device_enc.encode_frame``."""
         p = self.p
-        y, u, v = (torch.as_tensor(np.ascontiguousarray(pl, np.uint8))
-                   .to(self.device).to(torch.int32) for pl in yuv)
+        y, u, v = self.planes(yuv)
         if force is None:
             force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
                                 device=self.device)
@@ -184,7 +224,7 @@ class DeviceAVCCodec:
         if not refs:
             return DE.encode_frame(y, u, v, *self._dummy_refs(), qp, 0, force,
                                    intra_only=True, **kw)
-        R = max(p.num_ref_frames, 1)
+        R = max(p.num_ref_frames, 1) if n_refs is None else n_refs
         n_valid = min(len(refs), R)
         sel = [refs[min(i, n_valid - 1)] for i in range(R)]
         stacks = [torch.stack([r[k] for r in sel]) for k in range(3)]
@@ -199,6 +239,8 @@ class DeviceAVCCodec:
             raise NotImplementedError("rate control is not ported")
         p = self.p
         qp = p.qp if qp is None else qp
+        if self.bframes > 0:
+            return self._encode_sequence_b(frames, qp, verbose)
         R = max(p.num_ref_frames, 1)
         mb_h, mb_w = p.mb_h, p.mb_w
         rows = mb_h // self.n_slices
@@ -209,11 +251,21 @@ class DeviceAVCCodec:
         def finalize(pend):
             t0 = time.perf_counter()
             sym = pend["sym"]
-            if pend["idr"]:
+            if pend["idr"] and p.cabac:
+                rbsps = [PKC.pack_i_slice_cabac(
+                    sym, p, qp, frame_num=0, idr=True,
+                    idr_pic_id=pend["idr_pic_id"], row0=s * rows, n_rows=rows)
+                    for s in range(self.n_slices)]
+            elif pend["idr"]:
                 rbsps = [AN.pack_slice(sym, p, SLICE_I, qp, 0, True,
                                        pend["idr_pic_id"], 1,
                                        row0=s * rows, n_rows=rows)
                          for s in range(self.n_slices)]
+            elif p.cabac:
+                rbsps = [PKC.pack_p_slice_cabac(
+                    sym, p, qp, frame_num=pend["frame_num"],
+                    num_ref=pend["n_valid"], row0=s * rows, n_rows=rows)
+                    for s in range(self.n_slices)]
             elif self.sub8x8:
                 # the C packer has no sub_mb_type
                 rbsps = [PK.pack_p_slice(sym, p, qp,
@@ -266,8 +318,7 @@ class DeviceAVCCodec:
                 rec_np = AN.deblock_frame(*rec_np, ctx)
                 self.host_ms["deblock"].append((time.perf_counter() - t0) * 1e3)
             rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
-            dpb.insert(0, DE.prep_ref(*(torch.as_tensor(pl).to(self.device)
-                                        for pl in rec8), self.sr))
+            dpb.insert(0, self.prep(rec8))
             dpb = dpb[:R]
             mse = ((np.asarray(yuv[0], np.float64) - rec8[0]) ** 2).mean()
             meta.update(sym=sym_np, rec8=rec8,
@@ -276,4 +327,154 @@ class DeviceAVCCodec:
             pending = meta
         if pending is not None:
             finalize(pending)
+        return results, assemble_stream(p, slices)
+
+    def _encode_sequence_b(self, frames, qp: int, verbose: bool = False):
+        """B-GOP sequence encode (port of ``tpu_codec._tpu_b_sequence``).
+
+        ``bframes`` disposable B pictures between anchors (IbbP), or with
+        ``hierarchical`` the dyadic GOP of 4 of ``JM/lencod/src/
+        pred_struct.c`` populate_frm_struct: anchor P, then a reference B
+        at the midpoint (its own DPB slot, dropped by MMCO at the next
+        anchor), then the two leaf Bs predicting from it; QP cascade
+        anchor qp, reference B qp+1, leaf B qp+2.  Anchors predict from the
+        previous anchor alone.  The stream is in decode order, the results
+        in display order."""
+        p = self.p
+        frames = list(frames)
+        n = len(frames)
+        G = self.bframes + 1
+        anchors = sorted(set(list(range(0, n, G)) + [n - 1]))
+        mb_h, mb_w = p.mb_h, p.mb_w
+        rows = mb_h // self.n_slices
+        max_fn = 1 << p.log2_max_frame_num
+        max_poc = 1 << p.log2_max_poc_lsb
+        slices, results = [], [None] * n
+        fn_state = dict(frame_num=0)
+        packi = PKC.pack_i_slice_cabac if p.cabac else PK.pack_i_slice
+        packp = PKC.pack_p_slice_cabac if p.cabac else PK.pack_p_slice
+        packb = PKC.pack_b_slice_cabac if p.cabac else PK.pack_b_slice
+
+        def timed(key, fn, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def pack_slices(fn, *a, **kw):
+            return [fn(*a, row0=s * rows, n_rows=rows, **kw)
+                    for s in range(self.n_slices)]
+
+        def finish(rec_np, disp, ftype, rbsps, ref_idc, idr=False):
+            slices.extend((idr, rb, ref_idc) for rb in rbsps)
+            rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
+            mse = ((np.asarray(frames[disp][0], np.float64) - rec8[0])
+                   ** 2).mean()
+            results[disp] = AVCFrameResult(
+                frame_type=ftype, bits=sum(len(rb) for rb in rbsps) * 8,
+                psnr_y=99.99 if mse == 0 else
+                float(10 * np.log10(255.0 ** 2 / mse)), recon=rec8)
+            if verbose:
+                print(f"frame {disp:3d} {ftype:3s} bits "
+                      f"{results[disp].bits:7d} PSNR-Y "
+                      f"{results[disp].psnr_y:6.2f}")
+            return rec8
+
+        def encode_b(disp, prep0, poc0, prep1, poc1, col_motion, fqp,
+                     ref_pic=False):
+            y, u, v = self.planes(frames[disp])
+            col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32)).to(
+                self.device) for a in col_motion)
+            sym, rec, tctx = DE.encode_frame_b(
+                y, u, v, *(x[None] for x in prep0), *(x[None] for x in prep1),
+                col_mv, col_ref, fqp, 1, 1, mb_h=mb_h, mb_w=mb_w, sr=self.sr,
+                chroma_qp_offset=p.chroma_qp_offset, n_slices=self.n_slices)
+            sym_np = host_symbols(sym, torch.int32)
+            ctx_np = {k: v.cpu().numpy().astype(np.int64)
+                      for k, v in tctx.items()}
+            rec_np = tuple(pl.cpu().numpy().astype(np.int64) for pl in rec)
+            rbsps = timed("pack", pack_slices, packb, sym_np, p, fqp,
+                          frame_num=fn_state["frame_num"] % max_fn,
+                          num_ref0=1, num_ref1=1,
+                          poc_lsb=(2 * disp) % max_poc, ref_pic=ref_pic)
+            if p.deblock:
+                ctx = DeblockContext(mb_w, mb_h, fqp, p.chroma_qp_offset)
+                ctx.mb_intra = ctx_np["mb_intra"].astype(bool)
+                ctx.nnz = ctx_np["nnz"]
+                ctx.mv = ctx_np["mv0"]
+                ctx.ref = np.where(ctx_np["ref0"] == 0, poc0, -1)
+                ctx.mv1 = ctx_np["mv1"]
+                ctx.ref1 = np.where(ctx_np["ref1"] == 0, poc1, -1)
+                rec_np = timed("deblock", AN.deblock_frame, *rec_np, ctx)
+            rec8 = finish(rec_np, disp, "B", rbsps, 2 if ref_pic else 0)
+            if ref_pic:
+                fn_state["frame_num"] += 1
+            return rec8, (ctx_np["mv0"], ctx_np["ref0"])
+
+        prev = None
+        pending_bref_fn = None
+        for a in anchors:
+            fqp = qp
+            if a == 0:
+                sym, rec, tctx = self.encode_frame(frames[a], [], fqp)
+                rbsps = timed("pack", pack_slices, packi, host_symbols(sym),
+                              p, fqp, frame_num=0, idr=True)
+                ctx_np, rec_np = host_context(tctx, rec)
+                idr = True
+                fn_state["frame_num"] = 1
+                motion = (np.zeros((mb_h * 4, mb_w * 4, 2), np.int64),
+                          np.full((mb_h * 4, mb_w * 4), -1, np.int64))
+                anchor_fn = 0
+            else:
+                sym, rec, tctx = self.encode_frame(frames[a], [prev["prep"]],
+                                                   fqp, n_refs=1)
+                frame_num = fn_state["frame_num"]
+                mmco = reorder = None
+                if pending_bref_fn is not None:
+                    # the reference B outranks the previous anchor in the
+                    # default list-0 order (higher frame_num): pick the
+                    # anchor explicitly (spec 8.2.4.3.1) and drop the
+                    # reference B by MMCO once this picture is decoded
+                    mmco = [(1, (frame_num - pending_bref_fn - 1) % max_fn)]
+                    adiff = (frame_num - prev["fn"] - 1) % max_fn
+                    if adiff:
+                        reorder = [(0, adiff)]
+                rbsps = timed("pack", pack_slices, packp, host_symbols(sym),
+                              p, fqp, frame_num=frame_num % max_fn,
+                              num_ref=1, poc_lsb=(2 * a) % max_poc,
+                              mmco=mmco, reorder_l0=reorder)
+                pending_bref_fn = None
+                ctx_np, rec_np = host_context(tctx, rec)
+                idr = False
+                anchor_fn = frame_num
+                fn_state["frame_num"] += 1
+                motion = (ctx_np["mv"].astype(np.int64),
+                          ctx_np["ref"].astype(np.int64))
+            if p.deblock:
+                ctx = deblock_context(ctx_np, mb_h, mb_w, fqp,
+                                      p.chroma_qp_offset, idr)
+                rec_np = timed("deblock", AN.deblock_frame, *rec_np, ctx)
+            rec8 = finish(rec_np, a, "IDR" if idr else "P", rbsps,
+                          3 if idr else 2, idr)
+            cur = dict(prep=self.prep(rec8), motion=motion, poc=2 * a,
+                       fn=anchor_fn, disp=a)
+
+            if prev is not None:
+                gap = a - prev["disp"]
+                if self.hierarchical and gap == 4:
+                    m = prev["disp"] + 2
+                    bref8, bref_motion = encode_b(
+                        m, prev["prep"], prev["poc"], cur["prep"], cur["poc"],
+                        cur["motion"], qp + 1, ref_pic=True)
+                    pending_bref_fn = fn_state["frame_num"] - 1
+                    brefp = self.prep(bref8)
+                    encode_b(prev["disp"] + 1, prev["prep"], prev["poc"],
+                             brefp, 2 * m, bref_motion, qp + 2)
+                    encode_b(prev["disp"] + 3, brefp, 2 * m, cur["prep"],
+                             cur["poc"], cur["motion"], qp + 2)
+                else:
+                    for b in range(prev["disp"] + 1, a):
+                        encode_b(b, prev["prep"], prev["poc"], cur["prep"],
+                                 cur["poc"], cur["motion"], qp)
+            prev = cur
         return results, assemble_stream(p, slices)

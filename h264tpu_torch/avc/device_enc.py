@@ -1,14 +1,17 @@
-"""Conformant H.264 frame encoder on tensors (IPPP, CAVLC, High-profile P).
+"""Conformant H.264 frame encoder on tensors (I, P, B; High-profile P).
 
-Port of the P/I path of ``h264tpu/avc/tpu_enc.py``: the whole per-frame
+Port of ``h264tpu/avc/tpu_enc.py`` for one device: the whole per-frame
 decision process — integer motion search over the candidate lattice (Stage
 A), quarter-pel refinement (Stage B), and the wavefront decision scan with
 full-RD mode decision, intra 4x4/16x16/chroma prediction, residual coding and
 reconstruction — runs as tensor ops on one device; only the bit packing stays
-on the host (``avc/pack.py``, ``avc/native.py``), consuming the per-MB symbol
-arrays emitted here.  High profile adds the per-MB 8x8 transform with its RD
-choice (``transform8``), P_8x8 sub-partitions 8x4/4x8/4x4 (``sub8x8``) and
-the spec default scaling lists (``scaling_default``).
+on the host (``avc/pack.py``, ``avc/pack_cabac.py``, ``avc/native.py``),
+consuming the per-MB symbol arrays emitted here.  High profile adds the
+per-MB 8x8 transform with its RD choice (``transform8``), P_8x8
+sub-partitions 8x4/4x8/4x4 (``sub8x8``) and the spec default scaling lists
+(``scaling_default``).  B frames (:func:`encode_frame_b`) choose among
+spatial direct, L0/L1/Bi 16x16 and intra; the mesh-sharded encoders are not
+ported.
 
 Layout differs from the JAX package where that changes no result:
 
@@ -78,9 +81,12 @@ SUB_OPT_LOCAL = ((None,), (0, 1), (2, 3), (4, 5, 6, 7))
 SUB_HDR_BITS = (1, 3, 3, 5)
 
 
-def slot_geometry(sub8x8: bool) -> tuple:
+def slot_geometry(sub8x8: bool, only16: bool = False) -> tuple:
     """The (cy4, cx4, h4, w4) slots Stages A and B search: 9, or 41 with
-    the sub-partition slots."""
+    the sub-partition slots, or the 16x16 slot alone (``only16``, B
+    frames)."""
+    if only16:
+        return SLOTS4[:1]
     return SLOTS4 + (SUB_SLOTS4 if sub8x8 else ())
 
 _SCAN = np.asarray(BLOCK_SCAN, np.int64)
@@ -222,9 +228,11 @@ def _slot_sads(cells: torch.Tensor, mb_h: int, mb_w: int,
 
 
 def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
-                    band_rows: int = None, sub8x8: bool = False):
+                    band_rows: int = None, sub8x8: bool = False,
+                    only16: bool = False):
     """Integer-pel search for the partition slots of every MB: the 9 of
-    :data:`SLOTS4`, or 41 with ``sub8x8``.
+    :data:`SLOTS4`, 41 with ``sub8x8``, or the 16x16 one with ``only16``
+    (every slot's numbers do not depend on the other slots).
 
     org_y [H, W]; ref_ys [R, H+2P, W+2P] padded integer luma planes;
     ``band_rows``: MB rows per slice (default: one slice).  Returns (mv_int
@@ -244,7 +252,7 @@ def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
     n = 2 * sr + 1
     o = org_y.to(torch.int32)
     refs = ref_ys.to(torch.int32).contiguous()
-    slots4 = slot_geometry(sub8x8)
+    slots4 = slot_geometry(sub8x8, only16)
     ns = len(slots4)
     sl = torch.empty((R, n, n, ns, nmb), dtype=torch.int32, device=dev)
     for r in range(R):
@@ -332,7 +340,7 @@ _SUB_STEPS = {step: [(ddx, ddy) for ddy in (-step, 0, step)
 
 
 def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float,
-                   sub8x8: bool = False):
+                   sub8x8: bool = False, only16: bool = False):
     """Refine every (ref, slot, MB) to quarter-pel: the 8 half-pel then the
     8 quarter-pel neighbours of the best so far, by SATD + lambda_me * MVD
     bits; a candidate must be strictly better to win.
@@ -352,7 +360,7 @@ def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float,
     mb_x = (mb_i % mb_w) * 16
     rr = _ar(R, dev)[:, None, None]
     out_mv, out_sad = [], []
-    for s, (cy, cx, ch, cw) in enumerate(slot_geometry(sub8x8)):
+    for s, (cy, cx, ch, cw) in enumerate(slot_geometry(sub8x8, only16)):
         bh, bw = ch * 4, cw * 4
         y0 = mb_y + cy * 4
         x0 = mb_x + cx * 4
@@ -518,7 +526,8 @@ def _tabs(qm, key: str):
 
 def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off, qm=None):
     """Intra 16x16 RD over 4 modes.  patch [L, 17, 25] the reconstruction
-    around the MB (row 0 / column 0 are the neighbours)."""
+    around the MB (row 0 / column 0 are the neighbours); ``nbr`` None
+    estimates every block's bits at nC 0, as the B path does."""
     L = patch.shape[0]
     mf, ils = _tabs(qm, "i4")
     preds, allowed = IP.pred16x16_all(patch[:, 0, 1:17], patch[:, 1:17, 0],
@@ -542,7 +551,8 @@ def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off, qm=None):
     dc_zz = Q.zigzag(dc_lev)                                      # [L,4,16]
     nz_cells = torch.where(cbp[..., None, None],
                            (ac_zz != 0).sum(-1, dtype=torch.int32), 0)
-    nc_r = _luma_nc(nz_cells, lc, nbr)                            # [L,4,4,4]
+    nc_r = torch.zeros_like(nz_cells) if nbr is None else \
+        _luma_nc(nz_cells, lc, nbr)                               # [L,4,4,4]
     ac_bits = CD.block_bits_est(ac_zz.reshape(L, 64, 15),
                                 nc_r.reshape(L, 64), 15)
     ac_bits = ac_bits.reshape(L, 4, 16).sum(-1, dtype=torch.int32)
@@ -1028,17 +1038,15 @@ def _ssd(a, b, dims):
     return ((a - b) ** 2).sum(dims, dtype=torch.int32)
 
 
-def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
-    """Decisions and residuals of one MB per lane; returns (state updates,
-    symbols) as [L, ...] tensors without touching ``st``."""
-    dev = lc["band"].device
-    L = lc["band"].shape[0]
-    ar = _ar(L, dev)
-    qp, qpc, lam, qm = cfg["qp"], cfg["qpc"], cfg["lam"], cfg["qm"]
+def _intra_candidates(st, lc, fr, cfg, i16_nc: bool = True):
+    """The MB's original blocks, the committed neighbour counts and modes
+    (``nbr``), and its intra candidates: I16 (bits at the neighbours' nC,
+    or at nC 0 without ``i16_nc``, as the B path estimates), I4 and
+    chroma."""
     band, mby, mbx = lc["band"], lc["mby"], lc["mbx"]
     by0, bx0 = lc["by0"], lc["bx0"]
+    qp, lam, qm = cfg["qp"], cfg["lam"], cfg["qm"]
     ar_i = st["ar_i"][band]
-    ar_p = st["ar_p"][band]
     org16 = fr["org16"][lc["g"]]
     org2 = fr["orgc"][lc["g"]]
     lcol = torch.clamp(bx0 - 1, min=0)
@@ -1047,13 +1055,82 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                t_nnz=_win(st["nnz_y"], band, trow, bx0, 1, 4)[:, 0],
                l_i4m=_win(st["i4m"], band, by0, lcol, 4, 1)[..., 0],
                t_i4m=_win(st["i4m"], band, trow, bx0, 1, 4)[:, 0])
-
     patch = _win(st["rec_y"], band, 16 * mby, 16 * mbx, 17, 25)
-    i16 = _eval_i16(patch, org16, lc, nbr, qp, lam, ar_i, qm)
+    i16 = _eval_i16(patch, org16, lc, nbr if i16_nc else None, qp, lam, ar_i,
+                    qm)
     i4 = _eval_i4(patch, org16, lc, nbr, qp, lam, cfg["mb_w"], ar_i, qm)
     ch = _eval_chroma_intra(_win(st["rec_u"], band, 8 * mby, 8 * mbx, 9, 9),
                             _win(st["rec_v"], band, 8 * mby, 8 * mbx, 9, 9),
-                            org2, lc, qpc, qm)
+                            org2, lc, cfg["qpc"], qm)
+    return org16, org2, nbr, i16, i4, ch
+
+
+def _chroma_intra_rd(ch, org2):
+    """(SSD as float32, estimated bits with the mode) of the chroma intra
+    candidate, which the intra candidates of an inter frame carry."""
+    L = org2.shape[0]
+    ch_ssd = _ssd(org2, ch["recs"], (-1, -2, -3)).to(torch.float32)
+    ch_dc_b = CD.block_bits_est(ch["dc_levels"], 0, 4, chroma_dc=True).sum(
+        -1, dtype=torch.int32)
+    ch_ac_b = CD.block_bits_est(ch["ac_zzs"].reshape(L, 8, 15), 0, 15).sum(
+        -1, dtype=torch.int32)
+    ch_bits = torch.where(ch["cbp_chroma"] >= 1, ch_dc_b, 0) \
+        + torch.where(ch["cbp_chroma"] == 2, ch_ac_b, 0) + ue_bits(ch["mode"])
+    return ch_ssd, ch_bits
+
+
+def _winner_outputs(i16, i4, ch, sel_i16, sel_i4, is_skip, pred16, predc,
+                    inter):
+    """Reconstruction, coded block patterns, levels and neighbour-state
+    cells of the chosen candidate per lane: I16, I4, skip (the prediction
+    ``pred16``/``predc``, nothing coded) or the coded inter winner
+    ``inter`` (dict of rec16, recc, zzc, cbp_luma, cbp_chroma, dcl, acz)."""
+    dev = pred16.device
+    L = pred16.shape[0]
+    is_intra = sel_i16 | sel_i4
+    s2 = (sel_i16[:, None, None], sel_i4[:, None, None], is_skip[:, None, None])
+    rec16 = torch.where(s2[0], i16["rec"], torch.where(
+        s2[1], i4["rec"], torch.where(s2[2], pred16, inter["rec16"])))
+    recc = torch.where(is_intra[:, None, None, None], ch["recs"], torch.where(
+        is_skip[:, None, None, None], predc, inter["recc"]))
+    i4_cbp = _cbp_bits((i4["zzs"] != 0).any(-1).reshape(L, 4, 4).any(-1))
+    cbp_luma = torch.where(sel_i16, torch.where(i16["cbp_luma"], 15, 0),
+                           torch.where(sel_i4, i4_cbp, torch.where(
+                               is_skip, 0, inter["cbp_luma"])))
+    cbp_chroma = torch.where(is_intra, ch["cbp_chroma"],
+                             torch.where(is_skip, 0, inter["cbp_chroma"]))
+    sy, sx = _c("scan_y", _SCANY, dev), _c("scan_x", _SCANX, dev)
+    i16_zzc = torch.nn.functional.pad(i16["ac_zzs"][:, sy, sx], (0, 1))
+    i16_zzc = torch.where(i16["cbp_luma"][:, None, None], i16_zzc, 0)
+    zz = torch.where(s2[0], i16_zzc, torch.where(
+        s2[1], i4["zzs"], torch.where(s2[2], 0, inter["zzc"])))
+    cdc = torch.where(is_intra[:, None, None], ch["dc_levels"],
+                      torch.where(is_skip[:, None, None], 0, inter["dcl"]))
+    c5 = (is_intra[:, None, None, None, None],
+          is_skip[:, None, None, None, None])
+    cac = torch.where(c5[0], ch["ac_zzs"], torch.where(c5[1], 0, inter["acz"]))
+    nnz_i16 = torch.where(i16["cbp_luma"][:, None, None],
+                          (i16["ac_zzs"] != 0).sum(-1, dtype=torch.int32), 0)
+    nnz_cells = torch.where(s2[0], nnz_i16, torch.where(
+        s2[1], i4["nnz_cells"], torch.where(s2[2], 0, _nz_cells(inter["zzc"]))))
+    fadj_intra = torch.where(sel_i16[:, None, None], i16["fadj"], i4["fadj"])
+    return dict(rec16=rec16, recc=recc, cbp_luma=cbp_luma,
+                cbp_chroma=cbp_chroma, zz=zz, cdc=cdc, cac=cac,
+                nnz_cells=nnz_cells,
+                i4m_cells=torch.where(sel_i4[:, None, None],
+                                      i4["modes_cells"], -1),
+                ar_i_add=torch.where(is_intra[:, None, None], fadj_intra, 0))
+
+
+def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
+    """Decisions and residuals of one MB per lane; returns (state updates,
+    symbols) as [L, ...] tensors without touching ``st``."""
+    dev = lc["band"].device
+    L = lc["band"].shape[0]
+    ar = _ar(L, dev)
+    qp, qpc, lam, qm = cfg["qp"], cfg["qpc"], cfg["lam"], cfg["qm"]
+    ar_p = st["ar_p"][lc["band"]]
+    org16, org2, nbr, i16, i4, ch = _intra_candidates(st, lc, fr, cfg)
     i16_cost = _fma(lam, 11.0, i16["cost"])
     i4_cost = _fma(lam, 9.0, i4["cost"])
     zi = torch.zeros(L, dtype=torch.int32, device=dev)
@@ -1100,14 +1177,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                  + _ssd(org2, predc_sk, (-1, -2, -3))))
 
         # intra candidates carry the chroma SSD + bits too
-        ch_ssd = _ssd(org2, ch["recs"], (-1, -2, -3)).to(torch.float32)
-        ch_dc_b = CD.block_bits_est(ch["dc_levels"], 0, 4, chroma_dc=True).sum(
-            -1, dtype=torch.int32)
-        ch_ac_b = CD.block_bits_est(ch["ac_zzs"].reshape(L, 8, 15), 0, 15).sum(
-            -1, dtype=torch.int32)
-        ch_bits = torch.where(ch["cbp_chroma"] >= 1, ch_dc_b, 0) \
-            + torch.where(ch["cbp_chroma"] == 2, ch_ac_b, 0) \
-            + ue_bits(ch["mode"])
+        ch_ssd, ch_bits = _chroma_intra_rd(ch, org2)
         i16_cost = _fma(lam, ch_bits, i16_cost + ch_ssd)
         i4_cost = _fma(lam, ch_bits, i4_cost + ch_ssd)
 
@@ -1198,31 +1268,10 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
     # ---- winner outputs ----
     sel_i16 = is_intra & use_i16
     sel_i4 = is_intra & ~use_i16
-    s2 = (sel_i16[:, None, None], sel_i4[:, None, None], is_skip[:, None, None])
-    rec16 = torch.where(s2[0], i16["rec"], torch.where(
-        s2[1], i4["rec"], torch.where(s2[2], pred16, rec16_int)))
-    recc = torch.where(is_intra[:, None, None, None], ch["recs"], torch.where(
-        is_skip[:, None, None, None], predc, crecs_int))
-    i4_cbp = _cbp_bits((i4["zzs"] != 0).any(-1).reshape(L, 4, 4).any(-1))
-    cbp_luma = torch.where(sel_i16, torch.where(i16["cbp_luma"], 15, 0),
-                           torch.where(sel_i4, i4_cbp,
-                                       torch.where(is_skip, 0, cbp_bits_int)))
-    cbp_chroma = torch.where(is_intra, ch["cbp_chroma"],
-                             torch.where(is_skip, 0, cbp_c_int))
-    sy, sx = _c("scan_y", _SCANY, dev), _c("scan_x", _SCANX, dev)
-    i16_zzc = torch.nn.functional.pad(i16["ac_zzs"][:, sy, sx], (0, 1))
-    i16_zzc = torch.where(i16["cbp_luma"][:, None, None], i16_zzc, 0)
-    zz_out = torch.where(s2[0], i16_zzc, torch.where(
-        s2[1], i4["zzs"], torch.where(s2[2], 0, zzc)))
-    cdc_out = torch.where(is_intra[:, None, None], ch["dc_levels"],
-                          torch.where(is_skip[:, None, None], 0, dcl_int))
-    c5 = (is_intra[:, None, None, None, None], is_skip[:, None, None, None, None])
-    cac_out = torch.where(c5[0], ch["ac_zzs"], torch.where(c5[1], 0, acz_int))
-
-    nnz_i16 = torch.where(i16["cbp_luma"][:, None, None],
-                          (i16["ac_zzs"] != 0).sum(-1, dtype=torch.int32), 0)
-    nnz_cells = torch.where(s2[0], nnz_i16, torch.where(
-        s2[1], i4["nnz_cells"], torch.where(s2[2], 0, _nz_cells(zzc))))
+    w = _winner_outputs(i16, i4, ch, sel_i16, sel_i4, is_skip, pred16, predc,
+                        dict(rec16=rec16_int, recc=crecs_int, zzc=zzc,
+                             cbp_luma=cbp_bits_int, cbp_chroma=cbp_c_int,
+                             dcl=dcl_int, acz=acz_int))
     part = _c("part_map", _PART_MAP, dev)[torch.clamp(emit_m, max=3).long()]
     mv_cells = torch.where(is_intra[:, None, None, None], 0,
                            win_mvs[ar[:, None, None], part])
@@ -1233,11 +1282,9 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                                mv_cells)
         inter_code = torch.where(emit_m == M - 1, 7, inter_code)
     ref_cells = torch.where(is_intra, -1, win_r)[:, None, None].expand(L, 4, 4)
-    fadj_intra = torch.where(sel_i16[:, None, None], i16["fadj"], i4["fadj"])
-    upd = dict(rec16=rec16, recc=recc, mv_cells=mv_cells, ref_cells=ref_cells,
-               nnz_cells=nnz_cells,
-               i4m_cells=torch.where(sel_i4[:, None, None], i4["modes_cells"], -1),
-               ar_i_add=torch.where(is_intra[:, None, None], fadj_intra, 0),
+    upd = dict(rec16=w["rec16"], recc=w["recc"], mv_cells=mv_cells,
+               ref_cells=ref_cells, nnz_cells=w["nnz_cells"],
+               i4m_cells=w["i4m_cells"], ar_i_add=w["ar_i_add"],
                ar_p_add=ar_p_add)
 
     win_code = torch.where(sel_i16, 6, torch.where(
@@ -1249,8 +1296,8 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         mvd=torch.where(is_intra[:, None, None], 0, win_mvds).to(i32),
         i4flags=i4["flags"].to(i32), i16mode=i16["i16mode"],
         i16dc=i16["dc_zz"].to(i32), cmode=ch["mode"],
-        cbp_luma=cbp_luma.to(i32), cbp_chroma=cbp_chroma.to(i32),
-        zz=zz_out.to(i32), cdc=cdc_out.to(i32), cac=cac_out.to(i32),
+        **{k: w[k].to(i32) for k in ("cbp_luma", "cbp_chroma", "zz", "cdc",
+                                     "cac")},
         mb_intra=is_intra)
     if cfg["transform8"]:
         out["t8"] = (t8 & ~is_intra & ~is_skip).to(i32)
@@ -1270,7 +1317,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
 # ===========================================================================
 
 def search(org_y, ref_ups, sr: int, qp: int, n_slices: int = 1,
-           sub8x8: bool = False):
+           sub8x8: bool = False, only16: bool = False):
     """Stages A and B for every MB of the frame: (mv_q [nmb, R, ns, 2]
     quarter-pel, dist_q [nmb, R, ns] SATD) over :func:`slot_geometry`."""
     mb_h = org_y.shape[0] // 16
@@ -1278,9 +1325,9 @@ def search(org_y, ref_ups, sr: int, qp: int, n_slices: int = 1,
     ref_pads = ref_ups[:, 0, 0].to(torch.int32)          # integer samples
     mv_int, _sad, pmv2 = _integer_search(org_y, ref_pads, sr, lam_me,
                                          band_rows=mb_h // n_slices,
-                                         sub8x8=sub8x8)
+                                         sub8x8=sub8x8, only16=only16)
     mv_q, sad_q = _subpel_refine(org_y, ref_ups, mv_int, pmv2, sr, lam_me,
-                                 sub8x8=sub8x8)
+                                 sub8x8=sub8x8, only16=only16)
     return mv_q.permute(2, 0, 1, 3), sad_q.permute(2, 0, 1)
 
 
@@ -1302,6 +1349,38 @@ def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
                 vs_flat=ref_vs.reshape(-1),
                 P=luma_pad(sr), PC=chroma_pad(sr), band=lanes // sb_h,
                 band_h=sb_h * 16)
+
+
+def _scan(step, T: int, dev, marks=None) -> list:
+    """Run the ``T`` wavefront steps of a decision scan: ``step(t)`` with a
+    0-dim int64 step index on the device, returning a dict of per-lane
+    symbols.  On CUDA every step launches the same kernels on the same
+    shapes: step 0 runs eagerly (so every constant table is on the card),
+    one step is captured into a CUDA graph and replayed for the others.
+    ``marks``: a list; on CUDA, CUDA events are appended after the eager
+    first step and after the capture."""
+    t_dev = torch.zeros((), dtype=torch.int64, device=dev)
+    ys = [step(t_dev)]
+    if dev.type == "cuda" and T > 1:
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step(t_dev)
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        for t in range(1, T):
+            t_dev.fill_(t)
+            graph.replay()
+            ys.append({k: v.clone() for k, v in out.items()})
+        del graph
+    else:
+        for t in range(1, T):
+            t_dev.fill_(t)
+            ys.append(step(t_dev))
+    return ys
 
 
 def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
@@ -1379,31 +1458,7 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
             st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
         return out
 
-    T = mb_w + 2 * (sb_h - 1)
-    t_dev = torch.zeros((), dtype=torch.int64, device=dev)
-    ys = [step(t_dev)]
-    if dev.type == "cuda" and T > 1:
-        # every step launches the same kernels on the same shapes: capture
-        # one into a CUDA graph and replay it (step 0 above ran eagerly, so
-        # every constant table is already on the card)
-        if marks is not None:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = step(t_dev)
-        if marks is not None:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-        for t in range(1, T):
-            t_dev.fill_(t)
-            graph.replay()
-            ys.append({k: v.clone() for k, v in out.items()})
-        del graph
-    else:
-        for t in range(1, T):
-            t_dev.fill_(t)
-            ys.append(step(t_dev))
+    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev, marks)
     # MB (row, c) ran at step c + 2 * (row % sb_h) in lane row
     rows = _ar(mb_h * mb_w, dev) // mb_w
     t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
@@ -1463,3 +1518,360 @@ def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp: int,
                      scaling_default=scaling_default)
     rec, ctx = assemble(sym, st, mb_h, mb_w)
     return sym, rec, ctx
+
+
+# ===========================================================================
+# B slices (spec 7.4.3 / 8.4.1.2; JM twins pred_struct.c, mc_direct.c)
+# ===========================================================================
+#
+# Candidates per MB, with the full RD of the P path: B_Direct_16x16 (spatial,
+# direct_8x8_inference_flag = 1), B_L0/L1/Bi_16x16 with the best reference
+# of each list by ME cost, I16 and I4; B_Skip when direct wins with cbp 0.
+# The band state holds one MV field per list (mv0/ref0, mv1/ref1); a list
+# an MB does not use has ref -1 in its cells.
+
+# win codes of a B frame's symbols (avc/pack.py WIN_B_*): 0 skip, 1 direct,
+# 2 L0, 3 L1, 4 Bi, 5 I4, 6 I16
+_QUADS = np.array([(0, 0), (0, 1), (1, 0), (1, 1)], np.int64)
+
+
+def _minpos(a, b):
+    """spec 8.4.1.2.2 MinPositive, elementwise."""
+    both = (a >= 0) & (b >= 0)
+    return torch.where(both, torch.minimum(a, b), torch.maximum(a, b))
+
+
+def _direct_spatial_mb(f0, f1, lc, col_mv, col_ref):
+    """Spatial direct derivation of one MB per lane (8x8 inference).
+
+    ``f0``/``f1``: the lists' band MV fields (dicts of mv [S, sh4, w4, 2] and
+    ref [S, sh4, w4]); col_mv/col_ref: the first list-1 reference's stored
+    motion in the same band layout.  Returns (r0, r1 [L], used0, used1
+    [L], qmv0, qmv1 [L, 2, 2, 2]): per 8x8 quadrant the MVs, zeroed where
+    the colocated MB's corner cell is still (intra colocated counts as
+    moving)."""
+    dev = lc["band"].device
+
+    def nbr_ref(f):
+        _, ra, _ = _cell_read(f, lc, None, None, 0, -1, 0)
+        _, rb, _ = _cell_read(f, lc, None, None, -1, 0, 0)
+        _, rc, av_c = _cell_read(f, lc, None, None, -1, 4, 0)
+        _, rd, _ = _cell_read(f, lc, None, None, -1, -1, 0)
+        return _minpos(_minpos(ra, rb), torch.where(av_c, rc, rd))
+
+    r0, r1 = nbr_ref(f0), nbr_ref(f1)
+    direct_zero = (r0 < 0) & (r1 < 0)
+    used0 = (r0 >= 0) | direct_zero
+    used1 = (r1 >= 0) | direct_zero
+    r0c = torch.clamp(r0, min=0)
+    r1c = torch.clamp(r1, min=0)
+    mv0 = _predict_mv(f0, lc, None, None, 0, 0, 4, r0c, "none", 0)
+    mv1 = _predict_mv(f1, lc, None, None, 0, 0, 4, r1c, "none", 0)
+    mv0 = torch.where(((r0 >= 0) & ~direct_zero)[:, None], mv0, 0)
+    mv1 = torch.where(((r1 >= 0) & ~direct_zero)[:, None], mv1, 0)
+
+    # the colocated MB's corner cells (0 / 3) per quadrant
+    sh4, w4 = col_ref.shape[1:]
+    cyx = _c("corner03", np.array([0, 3], np.int64), dev)
+    ys = torch.clamp(lc["by0"][:, None, None] + cyx[:, None], 0, sh4 - 1)
+    xs = torch.clamp(lc["bx0"][:, None, None] + cyx[None, :], 0, w4 - 1)
+    b = lc["band"][:, None, None]
+    rcq = col_ref[b, ys, xs]                                   # [L, 2, 2]
+    mcq = col_mv[b, ys, xs]                                    # [L, 2, 2, 2]
+    col_zero = (rcq == 0) & (torch.abs(mcq) <= 1).all(-1)
+    live = ~direct_zero[:, None, None] & col_zero
+    z0 = live & (used0 & (r0c == 0))[:, None, None]
+    z1 = live & (used1 & (r1c == 0))[:, None, None]
+    L = mv0.shape[0]
+    qmv0 = torch.where(z0[..., None], 0, mv0[:, None, None].expand(L, 2, 2, 2))
+    qmv1 = torch.where(z1[..., None], 0, mv1[:, None, None].expand(L, 2, 2, 2))
+    return (r0c.to(torch.int32), r1c.to(torch.int32), used0, used1,
+            qmv0.to(torch.int32), qmv1.to(torch.int32))
+
+
+def _quad_mc(fr, r, qmv, lc):
+    """Per-8x8-quadrant MC of a 16x16 MB and its 8x8 chroma from one list:
+    reference ``r`` [L], quadrant MVs qmv [L, 2, 2, 2] -> ([L, 16, 16],
+    [L, 2, 8, 8])."""
+    dev = r.device
+    L = r.shape[0]
+    q = _c("quads", _QUADS, dev)
+    r4 = r[:, None].expand(L, 4)
+    mv4 = qmv.reshape(L, 4, 2)
+    pl = _mc_luma(fr, r4, mv4, 16 * lc["mby"][:, None] + 8 * q[:, 0],
+                  16 * lc["mbx"][:, None] + 8 * q[:, 1], 8, 8)  # [L, 4, 8, 8]
+    pc = _mc_chroma(fr, r4, mv4, 8 * lc["mby"][:, None] + 4 * q[:, 0],
+                    8 * lc["mbx"][:, None] + 4 * q[:, 1], 4, 4)  # [L,4,2,4,4]
+    return (pl.reshape(L, 2, 2, 8, 8).transpose(2, 3).reshape(L, 16, 16),
+            pc.reshape(L, 2, 2, 2, 4, 4).permute(0, 3, 1, 4, 2, 5).reshape(
+                L, 2, 8, 8))
+
+
+def _b_side(f, lc, fr, mv_mb, sad_mb, nv: int, lam_me: float):
+    """One list's 16x16 candidate: the reference of least SAD + lambda_me *
+    (ref + MVD bits) among the ``nv`` valid ones, its MVD, bits and
+    prediction.  mv_mb [L, R, 2], sad_mb [L, R]."""
+    dev = mv_mb.device
+    L, R = mv_mb.shape[:2]
+    ar = _ar(L, dev)
+    rv = _ar(R, dev).to(torch.int32)[None]                     # [1, R]
+    pm = _predict_mv(f, lc, None, None, 0, 0, 4, rv, "none", 1)  # [L, R, 2]
+    bits = te_bits(rv, nv) + se_bits(mv_mb[..., 0] - pm[..., 0]) \
+        + se_bits(mv_mb[..., 1] - pm[..., 1])
+    cost = torch.where(rv < nv, _fma(lam_me, bits, sad_mb), BIG)
+    ri = torch.argmin(cost, 1)                                  # first minimum
+    mv = mv_mb[ar, ri]
+    y0, x0 = 16 * lc["mby"], 16 * lc["mbx"]
+    return dict(ri=ri.to(torch.int32), mv=mv, mvd=(mv_mb - pm)[ar, ri],
+                bits=bits[ar, ri],
+                pl=_mc_luma(fr, ri, mv, y0, x0, 16, 16),
+                pc=_mc_chroma(fr, ri, mv, y0 // 2, x0 // 2, 8, 8))
+
+
+def _mb_compute_b(st, lc, fr0, fr1, mv0_mb, sad0_mb, mv1_mb, sad1_mb, col,
+                  cfg):
+    """Decisions and residuals of one B MB per lane (the counterpart of
+    ``tpu_enc._encode_band_b``'s ``mb_compute``); returns (state updates,
+    symbols) as [L, ...] tensors without touching ``st``."""
+    dev = lc["band"].device
+    L = lc["band"].shape[0]
+    qp, qpc, lam = cfg["qp"], cfg["qpc"], cfg["lam"]
+    ar_p = st["ar_p"][lc["band"]]
+
+    # ---- intra candidates (I16 estimates its bits at nC 0 here) ----
+    org16, org2, _, i16, i4, ch = _intra_candidates(st, lc, fr0, cfg,
+                                                    i16_nc=False)
+    ch_ssd, ch_bits = _chroma_intra_rd(ch, org2)
+    i16_cost = _fma(lam, ch_bits, _fma(lam, 13.0, i16["cost"]) + ch_ssd)
+    i4_cost = _fma(lam, ch_bits, _fma(lam, 11.0, i4["cost"]) + ch_ssd)
+
+    # ---- direct candidate ----
+    f0 = dict(mv=st["mv0"], ref=st["ref0"])
+    f1 = dict(mv=st["mv1"], ref=st["ref1"])
+    r0d, r1d, used0, used1, qmv0, qmv1 = _direct_spatial_mb(
+        f0, f1, lc, col["mv"], col["ref"])
+    d0l, d0c = _quad_mc(fr0, r0d, qmv0, lc)
+    d1l, d1c = _quad_mc(fr1, r1d, qmv1, lc)
+    both = used0 & used1
+
+    def combine(a, b):
+        sh = (-1,) + (1,) * (a.dim() - 1)
+        return torch.where(both.reshape(sh), (a + b + 1) >> 1,
+                           torch.where(used0.reshape(sh), a, b))
+
+    # ---- L0 / L1 / Bi 16x16 ----
+    s0 = _b_side(f0, lc, fr0, mv0_mb, sad0_mb, cfg["nv0"], cfg["lam_me"])
+    s1 = _b_side(f1, lc, fr1, mv1_mb, sad1_mb, cfg["nv1"], cfg["lam_me"])
+    preds_l = torch.stack([combine(d0l, d1l), s0["pl"], s1["pl"],
+                           (s0["pl"] + s1["pl"] + 1) >> 1], 1)  # [L,4,16,16]
+    preds_c = torch.stack([combine(d0c, d1c), s0["pc"], s1["pc"],
+                           (s0["pc"] + s1["pc"] + 1) >> 1], 1)  # [L,4,2,8,8]
+
+    # ---- full RD over the 4 B modes (CAVLC estimates at nC 0) ----
+    zzc_m, rec_m, cbpL_m, fadj_m = _code_inter_luma(
+        org16[:, None], preds_l, qp, ar_p[:, None, None, None])
+    dcl_m, acz_m, crecs_m, cbpC_m = _code_chroma(org2[:, None], preds_c, qpc,
+                                                 False)
+    ssd_m = _ssd(org16[:, None], rec_m, (-1, -2)) \
+        + _ssd(org2[:, None], crecs_m, (-1, -2, -3))
+    cbp_m = cbpL_m | (cbpC_m << 4)
+    lum_bits = CD.block_bits_est(zzc_m, 0, 16)                  # [L, 4, 16]
+    coded = ((cbpL_m[..., None] >> (_ar(16, dev) // 4)) & 1) > 0
+    lum_bits = torch.where(coded, lum_bits, 0).sum(-1, dtype=torch.int32)
+    cdc_bits = CD.block_bits_est(dcl_m, 0, 4, chroma_dc=True).sum(
+        -1, dtype=torch.int32)
+    cac_bits = CD.block_bits_est(acz_m.reshape(L, 4, 8, 15), 0, 15).sum(
+        -1, dtype=torch.int32)
+    res_bits = lum_bits + torch.where(cbpC_m >= 1, cdc_bits, 0) \
+        + torch.where(cbpC_m == 2, cac_bits, 0)
+    # header bits: mb_type ue + ref te + mvd (direct: mb_type only)
+    hdr = torch.stack([torch.ones_like(s0["bits"]), 3 + s0["bits"],
+                       3 + s1["bits"], 5 + s0["bits"] + s1["bits"]], 1)
+    bits_m = hdr + 1 + _cbp_ue(cbp_m) + (cbp_m > 0).to(torch.int32) + res_bits
+    cost_m = _fma(lam, bits_m, ssd_m)
+
+    costs = torch.cat([cost_m, i16_cost[:, None], i4_cost[:, None]], 1)
+    win = torch.argmin(costs, 1)                                # 0..5
+    is_intra = win >= 4
+    use_i16 = win == 4
+    win_m = torch.where(is_intra, 0, win)
+    is_direct = win == 0
+    is_skip = is_direct & (cbpL_m[:, 0] == 0) & (cbpC_m[:, 0] == 0)
+    sel_i16 = is_intra & use_i16
+    sel_i4 = is_intra & ~use_i16
+    nsk = ~is_skip
+    n2, n3 = nsk[:, None, None], nsk[:, None, None, None]
+
+    pred16 = _take(preds_l, win_m)
+    predc = _take(preds_c, win_m)
+    zzc = torch.where(n2, _take(zzc_m, win_m), 0)
+    rec16_int = torch.where(n2, _take(rec_m, win_m), pred16)
+    cbp_bits_int = torch.where(nsk, _take(cbpL_m, win_m), 0)
+    dcl_int = torch.where(n2, _take(dcl_m, win_m), 0)
+    acz_int = torch.where(nsk[:, None, None, None, None], _take(acz_m, win_m),
+                          0)
+    crecs_int = torch.where(n3, _take(crecs_m, win_m), predc)
+    cbp_c_int = torch.where(nsk, _take(cbpC_m, win_m), 0)
+
+    w = _winner_outputs(i16, i4, ch, sel_i16, sel_i4, is_skip, pred16, predc,
+                        dict(rec16=rec16_int, recc=crecs_int, zzc=zzc,
+                             cbp_luma=cbp_bits_int, cbp_chroma=cbp_c_int,
+                             dcl=dcl_int, acz=acz_int))
+
+    # ---- MV-field cell updates per winner ----
+    use0 = ~is_intra & torch.where(is_direct, used0,
+                                   (win_m == 1) | (win_m == 3))
+    use1 = ~is_intra & torch.where(is_direct, used1,
+                                   (win_m == 2) | (win_m == 3))
+    d4 = is_direct[:, None, None, None]
+
+    def cells(qmv, side, use):
+        dir_mv = qmv.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        mv = torch.where(d4, dir_mv, side["mv"][:, None, None].expand(
+            L, 4, 4, 2))
+        return torch.where(use[:, None, None, None], mv, 0)
+
+    def ref_cells(rd, side, use):
+        r = torch.where(use, torch.where(is_direct, rd, side["ri"]), -1)
+        return r[:, None, None].expand(L, 4, 4)
+
+    upd = dict(rec16=w["rec16"], recc=w["recc"],
+               mv0_cells=cells(qmv0, s0, use0),
+               ref0_cells=ref_cells(r0d, s0, use0),
+               mv1_cells=cells(qmv1, s1, use1),
+               ref1_cells=ref_cells(r1d, s1, use1),
+               nnz_cells=w["nnz_cells"], i4m_cells=w["i4m_cells"],
+               ar_i_add=w["ar_i_add"],
+               ar_p_add=torch.where((is_skip | is_intra)[:, None, None], 0,
+                                    _take(fadj_m, win_m)))
+
+    win_code = torch.where(sel_i16, 6, torch.where(
+        sel_i4, 5, torch.where(is_skip, 0, 1 + win_m)))
+    i32 = torch.int32
+    no_mvd = (is_intra | is_direct)[:, None]
+    out = dict(
+        win=win_code.to(i32),
+        ri0=torch.where(use0 & ~is_direct, s0["ri"], 0).to(i32),
+        ri1=torch.where(use1 & ~is_direct, s1["ri"], 0).to(i32),
+        mvd0=torch.where(no_mvd, 0, s0["mvd"]).to(i32),
+        mvd1=torch.where(no_mvd, 0, s1["mvd"]).to(i32),
+        i4flags=i4["flags"].to(i32), i16mode=i16["i16mode"],
+        i16dc=i16["dc_zz"].to(i32), cmode=ch["mode"],
+        **{k: w[k].to(i32) for k in ("cbp_luma", "cbp_chroma", "zz", "cdc",
+                                     "cac")},
+        mb_intra=is_intra)
+    return upd, out
+
+
+def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
+             col_mv, col_ref, qp: int, nv0: int, nv1: int, *, sr: int,
+             sb_h: int, chroma_qp_offset: int = 0, marks=None):
+    """The B frame's wavefront decision scan over every row-band slice at
+    once, stepped like :func:`decide` (one step eager, the others replayed
+    from one CUDA graph on the card; ``marks`` as there).
+
+    r0/r1: (ups, us, vs) reference stacks of lists 0 and 1; mv*_q [nmb, R,
+    2] / sad*_q [nmb, R] the 16x16 search results of each list; col_mv
+    [mb_h*4, mb_w*4, 2] / col_ref [mb_h*4, mb_w*4] the first list-1
+    reference's motion.  Returns (sym dict of [nmb, ...] tensors in raster
+    order, band state dict)."""
+    dev = org_y.device
+    H, W = org_y.shape
+    mb_h, mb_w = H // 16, W // 16
+    S = mb_h // sb_h
+    sh4, w4 = sb_h * 4, mb_w * 4
+    lam, lam_me = lambdas(qp)
+    cfg = dict(qp=qp, qpc=Q.chroma_qp(qp, chroma_qp_offset), lam=lam,
+               lam_me=lam_me, nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
+    fr0 = _frame_inputs(org_y, org_u, org_v, *r0, sr, sb_h)
+    fr1 = _frame_inputs(org_y, org_u, org_v, *r1, sr, sb_h)
+    col = dict(mv=col_mv.to(torch.int32).reshape(S, sh4, w4, 2),
+               ref=col_ref.to(torch.int32).reshape(S, sh4, w4))
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=torch.int32, device=dev)
+
+    st = dict(rec_y=full((S, sb_h * 16 + 1, W + 9), 0),
+              rec_u=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
+              rec_v=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
+              mv0=full((S, sh4, w4, 2), 0), ref0=full((S, sh4, w4), -2),
+              mv1=full((S, sh4, w4, 2), 0), ref1=full((S, sh4, w4), -2),
+              nnz_y=full((S, sh4, w4), 0), i4m=full((S, sh4, w4), -1),
+              ar_i=full((S, 4, 4), Q.OFFSET_INTRA),
+              ar_p=full((S, 4, 4), Q.OFFSET_INTER))
+    lane = _ar(mb_h, dev)
+    band = lane // sb_h
+    lr = lane % sb_h
+
+    def step(t):
+        """One wavefront step; ``t`` a 0-dim int64 tensor on the device."""
+        cs = t - 2 * lr
+        valid = (cs >= 0) & (cs < mb_w)
+        mbx = torch.clamp(cs, 0, mb_w - 1)
+        g = lane * mb_w + mbx
+        lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx, g=g)
+        upd, out = _mb_compute_b(st, lc, fr0, fr1, mv0_q[g], sad0_q[g],
+                                 mv1_q[g], sad1_q[g], col, cfg)
+        _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"], valid)
+        _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 0],
+             valid)
+        _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 1],
+             valid)
+        for key in ("mv0", "ref0", "mv1", "ref1"):
+            _put(st[key], band, 4 * lr, 4 * mbx, upd[key + "_cells"], valid)
+        for key, val in (("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
+            _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
+        vm = valid[:, None, None]
+        for key in ("ar_i", "ar_p"):
+            add = torch.where(vm, upd[key + "_add"], 0).reshape(
+                S, sb_h, 4, 4).sum(1, dtype=torch.int32)
+            st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
+        return out
+
+    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev, marks)
+    rows = _ar(mb_h * mb_w, dev) // mb_w
+    t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
+    sym = {k: torch.stack([y[k] for y in ys])[t_idx, rows] for k in ys[0]}
+    return sym, st
+
+
+def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
+                   r1_vs, col_mv, col_ref, qp: int, nv0: int, nv1: int, *,
+                   mb_h: int, mb_w: int, sr: int, chroma_qp_offset: int = 0,
+                   n_slices: int = 1):
+    """Encode one B frame's decisions and residuals on the tensors' device
+    (port of ``tpu_enc.encode_frame_b``).
+
+    The contract of :func:`encode_frame` plus the list-1 reference stack
+    and the colocated motion (mv [mb_h*4, mb_w*4, 2] / ref [mb_h*4,
+    mb_w*4] of the first list-1 reference, for spatial direct).  Stages A
+    and B run per list over the 16x16 slot.  Returns (sym, rec, ctx with
+    nnz/mv0/ref0/mv1/ref1/mb_intra)."""
+    if mb_h % n_slices:
+        raise ValueError(f"n_slices {n_slices} must divide mb_h {mb_h}")
+    sb_h = mb_h // n_slices
+    (mv0_q, sad0_q), (mv1_q, sad1_q) = (
+        tuple(x[:, :, 0] for x in search(org_y, ups, sr, qp, n_slices,
+                                          only16=True))
+        for ups in (r0_ups, r1_ups))
+    sym, st = decide_b(org_y, org_u, org_v, (r0_ups, r0_us, r0_vs),
+                       (r1_ups, r1_us, r1_vs), mv0_q, sad0_q, mv1_q, sad1_q,
+                       col_mv, col_ref, qp, nv0, nv1, sr=sr, sb_h=sb_h,
+                       chroma_qp_offset=chroma_qp_offset)
+    return (sym,) + assemble_b(sym, st, mb_h, mb_w)
+
+
+def assemble_b(sym, st, mb_h: int, mb_w: int):
+    """B band state -> frame reconstruction and the deblocking context."""
+    H, W = mb_h * 16, mb_w * 16
+    h4, w4 = mb_h * 4, mb_w * 4
+    rec = (st["rec_y"][:, 1:, 1:W + 1].reshape(H, W),
+           st["rec_u"][:, 1:, 1:].reshape(H // 2, W // 2),
+           st["rec_v"][:, 1:, 1:].reshape(H // 2, W // 2))
+    ctx = dict(nnz=st["nnz_y"].reshape(h4, w4),
+               mv0=st["mv0"].reshape(h4, w4, 2),
+               ref0=torch.clamp(st["ref0"], min=-1).reshape(h4, w4),
+               mv1=st["mv1"].reshape(h4, w4, 2),
+               ref1=torch.clamp(st["ref1"], min=-1).reshape(h4, w4),
+               mb_intra=sym["mb_intra"].reshape(mb_h, mb_w))
+    return rec, ctx

@@ -1,22 +1,24 @@
-"""Standard H.264 decoder, CAVLC progressive (host model).
+"""Standard H.264 decoder, progressive (host model).
 
-Decodes H.264 Annex-B streams bit-exactly: I/IDR and P slices (every P
-partition and sub-partition type), High profile's 8x8 transform of inter
-MBs and scaling lists (SPS/PPS, spec fall-back rules and default matrices),
-B slices without direct prediction,
-intra 4x4/16x16 and I_PCM, P_Skip, explicit weighted prediction,
-multi-ref sliding-window DPB with long-term reference pictures (MMCO ops
-1-6) and reference list modification, POC types 0/1/2 with display-order
-output keyed by (idr_epoch, poc), multi-slice pictures (spec 6.4.11
-slice-restricted availability), mb_qp_delta, data partitioning (NAL
-2/3/4), HRD VUI, in-loop deblocking, and per-syntax-element bit statistics
-(``bit_statistics``, the dec_statistics.c analogue).  The JM counterpart is
+Decodes H.264 Annex-B streams bit-exactly: I/IDR, P and B slices (every P
+partition and sub-partition type, every B mb_type and B_8x8 sub type),
+spatial and temporal direct (8.4.1.2.2/8.4.1.2.3), CAVLC and CABAC entropy
+for all three slice types (``avc/cabac.py``), High profile's 8x8 transform
+of inter MBs and scaling lists (SPS/PPS, spec fall-back rules and default
+matrices), intra 4x4/16x16 and I_PCM (CAVLC), P_Skip/B_Skip, explicit
+weighted prediction, multi-ref sliding-window DPB with long-term reference
+pictures (MMCO ops 1-6) and reference list modification, POC types 0/1/2
+with display-order output keyed by (idr_epoch, poc), multi-slice pictures
+(spec 6.4.11 slice-restricted availability), mb_qp_delta, data
+partitioning (NAL 2/3/4), HRD VUI, in-loop deblocking (with the two-list B
+bS derivation), and per-syntax-element bit statistics (``bit_statistics``,
+the dec_statistics.c analogue).  The JM counterpart is
 ``JM/ldecod/src/{image.c:809 decode_one_frame, mb_read.c:1139,
-read_comp_cavlc.c, mb_prediction.c}``.
+read_comp_cavlc.c, mb_prediction.c, mc_direct.c}``.
 
-Raise ``NotImplementedError``: CABAC, Intra 8x8 (I_NxN with
-transform_size_8x8_flag), FMO, B direct prediction (B_Skip, B_Direct_16x16, B_8x8), MVC, error
-concealment, fields/MBAFF, 4:2:2/4:4:4/>8-bit.
+Raise ``NotImplementedError``: Intra 8x8 (I_NxN with
+transform_size_8x8_flag, CAVLC or CABAC), FMO, MVC, error concealment,
+fields/MBAFF, 4:2:2/4:4:4/>8-bit.
 
 The port's own copy of ``h264tpu/avc/slice_dec.py``; it imports nothing
 from ``h264tpu``.
@@ -34,6 +36,7 @@ from . import cavlc as CV
 from . import inter as INTER
 from .tables import BLOCK_SCAN, BLOCK_SCAN_INV, CODENUM_TO_CBP_INTRA, \
     CODENUM_TO_CBP_INTER, mb_type_i16_parse
+from . import cabac as CB
 from . import native as AN
 from . import quant8 as Q8
 from . import qmatrix as QM
@@ -560,8 +563,9 @@ class AVCDecoder:
             poc = min(top, bottom)
         if pps["redundant_pic_cnt"]:
             self._tr(r, "redundant_pic_cnt", r.ue())
+        direct_spatial = True
         if slice_type == 1:
-            r.u(1)                          # direct_spatial_mv_pred_flag
+            direct_spatial = bool(r.u(1))   # else temporal (8.4.1.2.3)
         num_ref = pps["num_ref_idx_l0"]
         num_ref_l1 = pps["num_ref_idx_l1"]
         reorder_ops = []
@@ -642,8 +646,9 @@ class AVCDecoder:
                             mmco_ops.append((5,))
                         else:
                             raise NotImplementedError(f"MMCO op {op}")
-        if pps["cabac"]:
-            raise NotImplementedError("CABAC is not ported")
+        cabac_init_idc = 0
+        if pps["cabac"] and slice_type != 2:
+            cabac_init_idc = r.ue()
         qp = pps["pic_init_qp"] + self._tr(r, "slice_qp_delta", r.se())
         disable_dbl = 0
         a_off = b_off = 0
@@ -696,6 +701,7 @@ class AVCDecoder:
                        key=lambda e: e["lt_idx"])
         entries = sorted(short, key=lambda e: -picnum(e["fn"])) + lterm
         refs1 = []
+        col = None
         if slice_type == 1:
             before = sorted([e for e in short if e["poc"] < poc],
                             key=lambda e: -e["poc"])
@@ -709,6 +715,7 @@ class AVCDecoder:
             # with all DPB refs on one POC side), swap its first two
             if len(refs1) > 1 and refs1 == entries[:num_ref]:
                 refs1[0], refs1[1] = refs1[1], refs1[0]
+            col = refs1[0] if refs1 else None
         def apply_reorder(lst, ops):
             # spec 8.2.4.3.1/8.2.4.3.2 modification processes
             max_pic_num = max_fn
@@ -751,6 +758,7 @@ class AVCDecoder:
         if reorder_ops_l1 and slice_type == 1:
             l1r = apply_reorder(l1, reorder_ops_l1)
             refs1 = l1r[:num_ref_l1]
+            col = refs1[0] if refs1 else None
         refs = entries[:num_ref] if slice_type == 1 else entries
 
         gmap = None
@@ -762,6 +770,8 @@ class AVCDecoder:
                       if i >= first_mb]
         r_b = r_c = None
         if dp is not None:
+            if pps["cabac"]:
+                raise ValueError("data partitioning requires CAVLC")
             slice_id = self._tr(r, "slice_id", r.ue())
             readers = []
             for part in dp:                  # (rbsp_b, rbsp_c)
@@ -776,7 +786,9 @@ class AVCDecoder:
             r_b, r_c = readers
         dec = _SliceDecoder(self, sps, pps, slice_type, qp, refs, r,
                             mb_w, mb_h, num_ref, first_mb=first_mb, pic=pic,
-                            refs1=refs1, num_ref_l1=num_ref_l1, wp=wp,
+                            rbsp=rbsp, cabac_init_idc=cabac_init_idc,
+                            refs1=refs1, num_ref_l1=num_ref_l1, col=col,
+                            wp=wp, direct_spatial=direct_spatial,
                             gmap=gmap, mb_seq=mb_seq, r_b=r_b, r_c=r_c)
         dec.run()
         return done
@@ -784,8 +796,9 @@ class AVCDecoder:
 
 class _SliceDecoder:
     def __init__(self, top, sps, pps, slice_type, qp, refs, r, mb_w, mb_h,
-                 num_ref=1, first_mb=0, pic=None, refs1=None,
-                 num_ref_l1=1, wp=None, gmap=None, mb_seq=None,
+                 num_ref=1, first_mb=0, pic=None, rbsp=None,
+                 cabac_init_idc=0, refs1=None, num_ref_l1=1, col=None,
+                 wp=None, direct_spatial=True, gmap=None, mb_seq=None,
                  r_b=None, r_c=None):
         self.top = top
         # data partitioning (spec 7.4.1, NAL 2/3/4): category-2 syntax
@@ -794,6 +807,7 @@ class _SliceDecoder:
         self.r_b = r_b if r_b is not None else r
         self.r_c = r_c if r_c is not None else r
         self.wp = wp
+        self.direct_spatial = direct_spatial
         self.gmap = gmap                    # FMO slice-group map (flat)
         self.mb_seq = mb_seq                # this slice's MB decode order
         # refs arrive as DPB entry dicts (or bare RefPlanes in legacy use)
@@ -802,6 +816,7 @@ class _SliceDecoder:
         self.refs1_entries = refs1 or []
         self.refs1 = [e["rp"] for e in self.refs1_entries]
         self.num_ref_l1 = num_ref_l1
+        self.col = col
         self.mvf1 = INTER.MVField(mb_h, mb_w)
         self.sps, self.pps = sps, pps
         self.slice_type = slice_type
@@ -836,6 +851,16 @@ class _SliceDecoder:
         self.mvf = INTER.MVField(mb_h, mb_w)
         # last set bit == rbsp_stop_one_bit; data remains while pos < it
         self._stop = int(np.flatnonzero(r._bits)[-1])
+        self.cabac = bool(pps["cabac"])
+        if self.cabac:
+            while r.pos % 8:                    # cabac_alignment_one_bit
+                r.u(1)
+            self.cst = CB.MBState(mb_w, mb_h)
+            self.cst.first_mb = first_mb
+            self.crd = CB.CabacReader(bytes(rbsp[r.pos // 8:]),
+                                      slice_type, qp, self.cst,
+                                      cabac_init_idc)
+            self.CB = CB
 
     def _mb_ok(self, mby, mbx):
         """Same-slice availability of a causal neighbor MB (spec 6.4.11;
@@ -890,6 +915,8 @@ class _SliceDecoder:
         return na if has_a else (nb if has_b else 0)
 
     def run(self):
+        if self.cabac:
+            return self._run_cabac()
         n_mb = self.mb_w * self.mb_h
         seq = self.mb_seq if self.mb_seq is not None else \
             range(self.first_mb, n_mb)
@@ -901,9 +928,9 @@ class _SliceDecoder:
                 skip_run = self.top._tr(r, "mb_skip_run", r.ue())
                 for _ in range(skip_run):
                     if self.slice_type == 1:
-                        raise NotImplementedError(
-                            "B direct prediction is not ported")
-                    self._decode_skip(seq[i])
+                        self._decode_b_direct(seq[i], skip=True)
+                    else:
+                        self._decode_skip(seq[i])
                     self._mark_decoded(seq[i])
                     i += 1
                 if i >= len(seq) or r.pos >= self._stop:
@@ -961,6 +988,17 @@ class _SliceDecoder:
                     "ref_poc", np.full_like(self.mvf.ref, -1))[d] = \
                     ref_pocs[d]
         return self.rec_y, self.rec_u, self.rec_v
+
+    def _run_cabac(self):
+        n_mb = self.mb_w * self.mb_h
+        seq = self.mb_seq if self.mb_seq is not None else \
+            range(self.first_mb, n_mb)
+        for mb in seq:
+            self._decode_mb_cabac(mb)
+            self._mark_decoded(mb)
+            if self.crd.end_of_slice():
+                break
+        return self._finish_slice()
 
     # ------------------------------------------------------------------
     def _decode_skip(self, mb):
@@ -1412,8 +1450,564 @@ class _SliceDecoder:
 
 
 # ---------------------------------------------------------------------------
+# CABAC macroblock parsing (mixin methods of _SliceDecoder)
+# ---------------------------------------------------------------------------
+
+def _cabac_decode_mb(self, mb):
+    """Parse + reconstruct one MB with CABAC entropy (spec 9.3 syntax;
+    JM ldecod read_one_macroblock_*_cabac semantics)."""
+    CB = self.CB
+    rd = self.crd
+    cst = self.cst
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    by, bx = mby * 4, mbx * 4
+    p_slice = self.slice_type == 0
+
+    if self.slice_type == 1:                 # B slice
+        c0 = CB._Common(cst, mby, mbx, intra=False)
+        skip = rd.mb_skip_flag_b(c0)
+        cst.skip[mby, mbx] = skip
+        if skip:
+            cst.btype0[mby, mbx] = True
+            self._decode_b_direct(mb, skip=True)
+            cst.cat[mby, mbx] = CB.MBState.CAT_SKIP
+            cst.cbp[mby, mbx] = 0
+            cst.cipred[mby, mbx] = 0
+            cst.last_dqp = 0
+            sl4 = (slice(by, by + 4), slice(bx, bx + 4))
+            cst.direct[sl4] = True
+            cst.ref[sl4] = 0
+            cst.ref1[sl4] = 0
+            cst.mvd[sl4] = 0
+            cst.mvd1[sl4] = 0
+            return
+        return self._decode_b_mb_cabac(mb)
+
+    if p_slice:
+        c0 = CB._Common(cst, mby, mbx, intra=False)
+        skip = rd.mb_skip_flag(c0)
+        cst.skip[mby, mbx] = skip
+        if skip:
+            self._decode_skip(mb)
+            cst.cat[mby, mbx] = CB.MBState.CAT_SKIP
+            cst.cbp[mby, mbx] = 0
+            cst.cipred[mby, mbx] = 0
+            cst.last_dqp = 0
+            return
+
+    if p_slice:
+        win, i16_code = rd.mb_type_p_slice()
+        if win == 7:
+            raise NotImplementedError("PCM")
+        intra = win in (5, 6)
+        intra_type = None
+        if intra:
+            intra_type = 0 if win == 5 else i16_code
+    else:
+        c0 = CB._Common(cst, mby, mbx, intra=True)
+        intra_type = rd.mb_type_i_slice(c0)
+        if intra_type == 25:
+            raise NotImplementedError("PCM")
+        intra = True
+        win = 5 if intra_type == 0 else 6
+
+    if intra:
+        c = CB._Common(cst, mby, mbx, intra=True)
+        self._cabac_intra_mb(mby, mbx, intra_type, c)
+        self.mvf.set_partition(by, bx, 4, 4, np.zeros(2, np.int64), -1)
+        self.mb_intra[mby, mbx] = True
+        cst.cat[mby, mbx] = CB.MBState.CAT_I4 if intra_type == 0 \
+            else CB.MBState.CAT_I16
+        return
+
+    # ---- inter MB ----
+    c = CB._Common(cst, mby, mbx, intra=False)
+    self.mb_intra[mby, mbx] = False
+    cst.cat[mby, mbx] = CB.MBState.CAT_INTER
+    cst.cipred[mby, mbx] = 0
+    num_ref = self.num_ref
+    parts = []
+
+    def read_mv(pby, pbx, w4, h4, ri, tag="none"):
+        pmv = self.mvf.predict(pby, pbx, w4, h4, ri, tag)
+        dx = rd.mvd(c, pby, pbx, 0)
+        dy = rd.mvd(c, pby, pbx, 1)
+        cst.mvd[pby:pby + h4, pbx:pbx + w4] = (dx, dy)
+        mv = pmv + np.array([dx, dy], np.int64)
+        self.mvf.set_partition(pby, pbx, w4, h4, mv, ri)
+        return mv
+
+    if win == 1:
+        ri = rd.ref_idx(c, by, bx) if num_ref > 1 else 0
+        cst.ref[by:by + 4, bx:bx + 4] = ri
+        mv = read_mv(by, bx, 4, 4, ri)
+        parts = [((0, 0, 4, 4), mv, ri)]
+    elif win in (2, 3):
+        geo = ([((0, 0, 4, 2), "16x8_top"), ((2, 0, 4, 2), "16x8_bot")]
+               if win == 2 else
+               [((0, 0, 2, 4), "8x16_left"), ((0, 2, 2, 4), "8x16_right")])
+        ris = []
+        for (dy4, dx4, w4, h4), tag in geo:
+            # store each ref before reading the next: the ctx of a later
+            # partition reads earlier partitions' cells (ldecod order)
+            ri = rd.ref_idx(c, by + dy4, bx + dx4) if num_ref > 1 else 0
+            cst.ref[by + dy4:by + dy4 + h4, bx + dx4:bx + dx4 + w4] = ri
+            ris.append(ri)
+        for ((dy4, dx4, w4, h4), tag), ri in zip(geo, ris):
+            mv = read_mv(by + dy4, bx + dx4, w4, h4, ri, tag)
+            parts.append(((dy4, dx4, w4, h4), mv, ri))
+    else:                                   # P8x8
+        subs = [rd.sub_mb_type() for _ in range(4)]
+        ris = []
+        for b8 in range(4):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            ri = rd.ref_idx(c, by + dy8, bx + dx8) if num_ref > 1 else 0
+            cst.ref[by + dy8:by + dy8 + 2, bx + dx8:bx + dx8 + 2] = ri
+            ris.append(ri)
+        for b8 in range(4):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            geo = {0: [(0, 0, 2, 2)],
+                   1: [(0, 0, 2, 1), (1, 0, 2, 1)],
+                   2: [(0, 0, 1, 2), (0, 1, 1, 2)],
+                   3: [(0, 0, 1, 1), (0, 1, 1, 1),
+                       (1, 0, 1, 1), (1, 1, 1, 1)]}[subs[b8]]
+            for (sy, sx, w4, h4) in geo:
+                mv = read_mv(by + dy8 + sy, bx + dx8 + sx, w4, h4, ris[b8])
+                parts.append(((dy8 + sy, dx8 + sx, w4, h4), mv, ris[b8]))
+
+    self._mc_inter(mby, mbx, parts)
+
+    cbp = rd.cbp(c)
+    cst.cbp[mby, mbx] = cbp
+    cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+    t8 = False
+    no_small = win in (1, 2, 3) or \
+        (win == 4 and all(sx == 0 for sx in subs))
+    if cbp_luma > 0 and self.pps["transform_8x8"] and no_small:
+        t8 = rd.transform_size_flag(c)
+    self.transform8[mby, mbx] = t8
+    qp = self._prev_qp(mb)
+    if cbp > 0:
+        qp = (qp + rd.mb_qp_delta(c) + 52) % 52
+    else:
+        cst.last_dqp = 0
+    self.mb_qp[mby, mbx] = qp
+    if t8:
+        self._cabac_residual_luma8(mby, mbx, cbp_luma, qp, c)
+    else:
+        self._cabac_residual_luma(mby, mbx, cbp_luma, qp, c, intra16=False)
+    self._cabac_residual_chroma(mby, mbx, cbp_chroma, qp, c, intra=False)
+
+
+def _cabac_residual_luma8(self, mby, mbx, cbp_luma, qp, c):
+    """CABAC 8x8 luma residual: one cat-5 (LUMA_8x8) block per coded
+    8x8, 64-coefficient scan, no coded_block_flag (spec 7.4.5.3.3); the
+    four 4x4 cells inherit the coded status for neighbor cbf contexts
+    and deblock (JM ldecod read_comp_coeff_8x8_CABAC)."""
+    rd = self.crd
+    by, bx = mby * 4, mbx * 4
+    y0, x0 = mby * 16, mbx * 16
+    for b8 in range(4):
+        y8, x8 = b8 >> 1, b8 & 1
+        cells = (slice(by + 2 * y8, by + 2 * y8 + 2),
+                 slice(bx + 2 * x8, bx + 2 * x8 + 2))
+        if not (cbp_luma & (1 << b8)):
+            self.st_nnz[cells] = 0
+            continue
+        zz64 = rd.residual_block(c, self.CB.LUMA_8x8)
+        cnt = int((zz64 != 0).sum())
+        self.st_nnz[cells] = cnt
+        for cy in range(2):
+            for cx4 in range(2):
+                c.set_cbf(self.CB.LUMA_4x4, by + 2 * y8 + cy,
+                          bx + 2 * x8 + cx4)
+        deq = self._dq8(Q8.unzigzag8(zz64), qp, intra=False)
+        yy, xx = y0 + y8 * 8, x0 + x8 * 8
+        pred = self.rec_y[yy:yy + 8, xx:xx + 8]
+        self.rec_y[yy:yy + 8, xx:xx + 8] = \
+            Q8.reconstruct8(pred, Q8.idct8x8(deq))
+
+
+def _cabac_intra8x8_mb(self, mby, mbx, c):
+    """I_NxN with transform_size_8x8_flag=1, CABAC entropy."""
+    raise NotImplementedError("Intra 8x8 is not ported")
+
+
+def _cabac_intra_mb(self, mby, mbx, intra_type, c):
+    CB = self.CB
+    rd = self.crd
+    cst = self.cst
+    by, bx = mby * 4, mbx * 4
+    if intra_type == 0:                      # I_NxN
+        if self.pps["transform_8x8"] and rd.transform_size_flag(c):
+            return self._cabac_intra8x8_mb(mby, mbx, c)
+        modes = np.zeros(16, np.int64)
+        for k in range(16):
+            y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
+            bby, bbx = by + y4, bx + x4
+            avail_l = bbx > 0 and self._mb_ok(bby // 4, (bbx - 1) // 4)
+            avail_t = bby > 0 and self._mb_ok((bby - 1) // 4, bbx // 4)
+            ma = int(self.i4_modes[bby, bbx - 1]) if avail_l else -2
+            mb_ = int(self.i4_modes[bby - 1, bbx]) if avail_t else -2
+            if ma == -2 or mb_ == -2:
+                mpm = 2
+            else:
+                mpm = min(ma if ma >= 0 else 2, mb_ if mb_ >= 0 else 2)
+            flag, rem = rd.intra_pred_mode()
+            m = mpm if flag else rem + (1 if rem >= mpm else 0)
+            modes[k] = m
+            self.i4_modes[bby, bbx] = m
+        ch_mode = rd.chroma_pred_mode(c)
+        cst.cipred[mby, mbx] = ch_mode
+        cbp = rd.cbp(c)
+        cst.cbp[mby, mbx] = cbp
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        qp = self._prev_qp(mby * self.mb_w + mbx)
+        if cbp > 0:
+            qp = (qp + rd.mb_qp_delta(c) + 52) % 52
+        else:
+            cst.last_dqp = 0
+        self.mb_qp[mby, mbx] = qp
+        zzs = np.zeros((16, 16), np.int64)
+        for k in range(16):
+            y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
+            bby, bbx = by + y4, bx + x4
+            b8 = (y4 // 2) * 2 + (x4 // 2)
+            if cbp_luma & (1 << b8):
+                zz = rd.residual_block(c, self.CB.LUMA_4x4, by=bby, bx=bbx)
+                self.st_nnz[bby, bbx] = int((zz != 0).sum())
+                zzs[k] = zz
+            else:
+                self.st_nnz[bby, bbx] = 0
+        for k in range(16):
+            y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
+            self._recon_i4_block(mby, mbx, y4, x4, int(modes[k]), zzs[k], qp)
+        self._cabac_residual_chroma(mby, mbx, cbp_chroma, qp, c,
+                                    intra=True, ch_mode=ch_mode)
+    else:                                    # I16x16
+        i16mode, cbp_chroma, cbp_luma_nz = mb_type_i16_parse(intra_type)
+        ch_mode = rd.chroma_pred_mode(c)
+        cst.cipred[mby, mbx] = ch_mode
+        cst.cbp[mby, mbx] = (15 if cbp_luma_nz else 0) | (cbp_chroma << 4)
+        qp = self._prev_qp(mby * self.mb_w + mbx)
+        qp = (qp + rd.mb_qp_delta(c) + 52) % 52
+        self.mb_qp[mby, mbx] = qp
+        y0, x0 = mby * 16, mbx * 16
+        avail_t = mby > 0 and self._mb_ok(mby - 1, mbx)
+        avail_l = mbx > 0 and self._mb_ok(mby, mbx - 1)
+        top16 = self.rec_y[y0 - 1, x0:x0 + 16] if avail_t else \
+            np.zeros(16, np.int64)
+        left16 = self.rec_y[y0:y0 + 16, x0 - 1] if avail_l else \
+            np.zeros(16, np.int64)
+        corner = self.rec_y[y0 - 1, x0 - 1] if (avail_t and avail_l) else 0
+        preds, _ = IP.pred16x16_all(top16, left16, corner, avail_t, avail_l)
+        pred = preds[i16mode]
+        dc_zz = rd.residual_block(c, self.CB.LUMA_16DC)
+        dc_lev = Q.unzigzag(dc_zz)
+        dc_deq = self._dqdc16(dc_lev, qp)
+        ac = np.zeros((4, 4, 4, 4), np.int64)
+        for k in range(16):
+            y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
+            bby, bbx = by + y4, bx + x4
+            if cbp_luma_nz:
+                zz15 = rd.residual_block(c, self.CB.LUMA_16AC, by=bby, bx=bbx)
+                self.st_nnz[bby, bbx] = int((zz15 != 0).sum())
+                full = np.zeros(16, np.int64)
+                full[1:] = zz15
+                ac[y4, x4] = Q.unzigzag(full)
+            else:
+                self.st_nnz[bby, bbx] = 0
+        deq = self._dq4(ac, qp, intra=True)
+        deq[:, :, 0, 0] = dc_deq
+        rec_b = Q.reconstruct(
+            pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3), Q.idct4x4(deq))
+        self.rec_y[y0:y0 + 16, x0:x0 + 16] = \
+            rec_b.transpose(0, 2, 1, 3).reshape(16, 16)
+        self.i4_modes[by:by + 4, bx:bx + 4] = -1
+        self._cabac_residual_chroma(mby, mbx, cbp_chroma, qp, c,
+                                    intra=True, ch_mode=ch_mode)
+
+
+def _cabac_residual_luma(self, mby, mbx, cbp_luma, qp, c, intra16):
+    rd = self.crd
+    by, bx = mby * 4, mbx * 4
+    y0, x0 = mby * 16, mbx * 16
+    lev = np.zeros((4, 4, 4, 4), np.int64)
+    for k in range(16):
+        y4, x4 = int(BLOCK_SCAN[k][0]), int(BLOCK_SCAN[k][1])
+        bby, bbx = by + y4, bx + x4
+        b8 = (y4 // 2) * 2 + (x4 // 2)
+        if cbp_luma & (1 << b8):
+            zz = rd.residual_block(c, self.CB.LUMA_4x4, by=bby, bx=bbx)
+            self.st_nnz[bby, bbx] = int((zz != 0).sum())
+            lev[y4, x4] = Q.unzigzag(zz)
+        else:
+            self.st_nnz[bby, bbx] = 0
+    if cbp_luma:
+        pred = self.rec_y[y0:y0 + 16, x0:x0 + 16]
+        deq = self._dq4(lev, qp, intra=False)
+        rec_b = Q.reconstruct(
+            pred.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3), Q.idct4x4(deq))
+        self.rec_y[y0:y0 + 16, x0:x0 + 16] = \
+            rec_b.transpose(0, 2, 1, 3).reshape(16, 16)
+
+
+def _cabac_residual_chroma(self, mby, mbx, cbp_chroma, qp, c, intra,
+                           ch_mode=None):
+    rd = self.crd
+    qpc = Q.chroma_qp(qp, self.pps["chroma_qp_offset"])
+    cy, cx = mby * 8, mbx * 8
+    if intra:
+        avail_t = mby > 0 and self._mb_ok(mby - 1, mbx)
+        avail_l = mbx > 0 and self._mb_ok(mby, mbx - 1)
+        preds = []
+        for rec_p in (self.rec_u, self.rec_v):
+            top8 = rec_p[cy - 1, cx:cx + 8] if avail_t else \
+                np.zeros(8, np.int64)
+            left8 = rec_p[cy:cy + 8, cx - 1] if avail_l else \
+                np.zeros(8, np.int64)
+            corner = rec_p[cy - 1, cx - 1] if (avail_t and avail_l) else 0
+            pr, _ = IP.pred_chroma_all(top8, left8, corner, avail_t, avail_l)
+            preds.append(pr[ch_mode])
+    else:
+        preds = [self.rec_u[cy:cy + 8, cx:cx + 8].copy(),
+                 self.rec_v[cy:cy + 8, cx:cx + 8].copy()]
+
+    dc_deqs = [np.zeros((2, 2), np.int64), np.zeros((2, 2), np.int64)]
+    if cbp_chroma > 0:
+        for ci in range(2):
+            dc_zz = rd.residual_block(c, self.CB.CHROMA_DC, comp=ci)
+            dc_deqs[ci] = self._dqdcc(dc_zz, qpc, intra, ci)
+    acs = [np.zeros((2, 2, 4, 4), np.int64) for _ in range(2)]
+    for ci in range(2):
+        for by4 in range(2):
+            for bx4 in range(2):
+                cby, cbx = mby * 2 + by4, mbx * 2 + bx4
+                if cbp_chroma == 2:
+                    zz15 = rd.residual_block(c, self.CB.CHROMA_AC,
+                                             by=cby, bx=cbx, comp=ci)
+                    self.nnz_c[ci, cby, cbx] = int((zz15 != 0).sum())
+                    full = np.zeros(16, np.int64)
+                    full[1:] = zz15
+                    acs[ci][by4, bx4] = Q.unzigzag(full)
+                else:
+                    self.nnz_c[ci, cby, cbx] = 0
+    for ci, rec_p in ((0, self.rec_u), (1, self.rec_v)):
+        deq = self._dq4(acs[ci], qpc, intra, ci) if cbp_chroma == 2 else \
+            np.zeros((2, 2, 4, 4), np.int64)
+        deq[:, :, 0, 0] = dc_deqs[ci]
+        rec_b = Q.reconstruct(
+            np.asarray(preds[ci]).reshape(2, 4, 2, 4).transpose(0, 2, 1, 3),
+            Q.idct4x4(deq))
+        rec_p[cy:cy + 8, cx:cx + 8] = \
+            rec_b.transpose(0, 2, 1, 3).reshape(8, 8)
+
+
+_SliceDecoder._decode_mb_cabac = _cabac_decode_mb
+_SliceDecoder._cabac_intra_mb = _cabac_intra_mb
+_SliceDecoder._cabac_residual_luma = _cabac_residual_luma
+_SliceDecoder._cabac_residual_luma8 = _cabac_residual_luma8
+_SliceDecoder._cabac_intra8x8_mb = _cabac_intra8x8_mb
+_SliceDecoder._cabac_residual_chroma = _cabac_residual_chroma
+
+
+# ---------------------------------------------------------------------------
 # B-slice parsing (CAVLC; spec 7.4.5 Table 7-14 subset + spatial direct)
 # ---------------------------------------------------------------------------
+
+def _min_positive(a: int, b: int) -> int:
+    """spec 8.4.1.2.2 MinPositive."""
+    if a >= 0 and b >= 0:
+        return min(a, b)
+    return max(a, b)
+
+
+def spatial_direct_16x16(mvf0, mvf1, by, bx, col_mv, col_ref,
+                         col_short_term=True):
+    """Spatial direct derivation for one MB (spec 8.4.1.2.2).
+
+    mvf0/mvf1: per-list MVFields of the current picture; col_mv/col_ref:
+    the colocated (first list-1 reference) picture's stored motion.
+    Returns (ref0, ref1, mv0_cells [4,4,2], mv1_cells [4,4,2],
+    used0, used1)."""
+    def nbr_refs(mvf):
+        mv_a, ref_a, av_a = mvf.cell(by, bx - 1)
+        mv_b, ref_b, av_b = mvf.cell(by - 1, bx)
+        mv_c, ref_c, av_c = mvf.cell(by - 1, bx + 4)
+        if not av_c:
+            mv_c, ref_c, av_c = mvf.cell(by - 1, bx - 1)
+        return ref_a, ref_b, ref_c
+
+    r0 = _min_positive(_min_positive(*nbr_refs(mvf0)[:2]), nbr_refs(mvf0)[2])
+    r1 = _min_positive(_min_positive(*nbr_refs(mvf1)[:2]), nbr_refs(mvf1)[2])
+    direct_zero = r0 < 0 and r1 < 0
+    if direct_zero:
+        r0 = r1 = 0
+        mv0 = np.zeros(2, np.int64)
+        mv1 = np.zeros(2, np.int64)
+    else:
+        mv0 = mvf0.predict(by, bx, 4, 4, r0) if r0 >= 0 else \
+            np.zeros(2, np.int64)
+        mv1 = mvf1.predict(by, bx, 4, 4, r1) if r1 >= 0 else \
+            np.zeros(2, np.int64)
+    used0, used1 = r0 >= 0, r1 >= 0
+    if not used0:
+        r0 = 0
+    if not used1:
+        r1 = 0
+
+    mv0_cells = np.broadcast_to(mv0, (4, 4, 2)).copy()
+    mv1_cells = np.broadcast_to(mv1, (4, 4, 2)).copy()
+    if not direct_zero and col_short_term:
+        # direct_8x8_inference_flag = 1: each 8x8 quadrant uses the
+        # colocated MACROBLOCK's corner 4x4 (cells (0,0),(0,3),(3,0),(3,3))
+        for qy in range(2):
+            for qx in range(2):
+                rc = int(col_ref[by + 3 * qy, bx + 3 * qx])
+                mc = col_mv[by + 3 * qy, bx + 3 * qx]
+                # intra colocated (ref < 0) counts as "moving" (JM
+                # ldecod mc_direct.c get_colocated_info: colZero needs
+                # ref_idx 0 with |mv| <= 1)
+                col_zero = (rc == 0 and abs(int(mc[0])) <= 1
+                            and abs(int(mc[1])) <= 1)
+                if col_zero:
+                    sl = (slice(2 * qy, 2 * qy + 2),
+                          slice(2 * qx, 2 * qx + 2))
+                    if used0 and r0 == 0:
+                        mv0_cells[sl[0], sl[1]] = 0
+                    if used1 and r1 == 0:
+                        mv1_cells[sl[0], sl[1]] = 0
+    return r0, r1, mv0_cells, mv1_cells, used0, used1
+
+
+def _b_mc_bi(self, mby, mbx, pred_parts):
+    """Store a B MB prediction: pred_parts = list of (py, pu, pv)."""
+    y0, x0 = mby * 16, mbx * 16
+    cy, cx = mby * 8, mbx * 8
+    if len(pred_parts) == 2:
+        py, pu, pv = (( a + b + 1) >> 1 for a, b in zip(*pred_parts))
+    else:
+        py, pu, pv = pred_parts[0]
+    self.rec_y[y0:y0 + 16, x0:x0 + 16] = py
+    self.rec_u[cy:cy + 8, cx:cx + 8] = pu
+    self.rec_v[cy:cy + 8, cx:cx + 8] = pv
+
+
+def _b_direct_cells(self, mby, mbx):
+    """Per-4x4-cell direct motion of one MB -> (ref0 [4,4], mv0 [4,4,2],
+    ref1 [4,4], mv1 [4,4,2]); ref < 0 = list unused for that cell.
+
+    Spatial per spec 8.4.1.2.2 (list-uniform except colZero quadrants) or
+    temporal per 8.4.1.2.3 (per-quadrant scaled colocated motion,
+    direct_8x8_inference_flag = 1; JM twin ldecod mc_direct.c:25)."""
+    by, bx = mby * 4, mbx * 4
+    ref0 = np.full((4, 4), -1, np.int64)
+    ref1 = np.full((4, 4), -1, np.int64)
+    mv0 = np.zeros((4, 4, 2), np.int64)
+    mv1 = np.zeros((4, 4, 2), np.int64)
+    if self.direct_spatial:
+        col_mv = self.col["mv"] if self.col else np.zeros_like(self.mvf.mv)
+        col_ref = self.col["ref"] if self.col else \
+            np.full_like(self.mvf.ref, -1)
+        r0, r1, mv0c, mv1c, used0, used1 = spatial_direct_16x16(
+            self.mvf, self.mvf1, by, bx, col_mv, col_ref)
+        if used0:
+            ref0[:] = r0
+            mv0[:] = mv0c
+        if used1:
+            ref1[:] = r1
+            mv1[:] = mv1c
+        return ref0, mv0, ref1, mv1
+
+    # temporal direct: both lists always used; refIdxL1 = 0
+    poc_cur = self.pic["poc"] if self.pic is not None else 0
+    col = self.col
+    poc_l1 = self.refs1_entries[0]["poc"]
+    l0_pocs = [e["poc"] for e in self.ref_entries]
+    col_rp = col.get("ref_poc") if col else None
+    for qy in range(2):
+        for qx in range(2):
+            cc_y, cc_x = by + 3 * qy, bx + 3 * qx   # corner cell (8x8 inf)
+            if col is None or col_rp is None:
+                mv_col = np.zeros(2, np.int64)
+                rp_col = -1
+            else:
+                mv_col = col["mv"][cc_y, cc_x]
+                rp_col = int(col_rp[cc_y, cc_x])
+            if rp_col < 0:                          # intra colocated
+                r0i = 0
+                mv_col = np.zeros(2, np.int64)
+            else:
+                r0i = l0_pocs.index(rp_col) if rp_col in l0_pocs else 0
+            poc_ref = l0_pocs[r0i]
+            tb = min(max(poc_cur - poc_ref, -128), 127)
+            td = min(max(poc_l1 - poc_ref, -128), 127)
+            sl = (slice(2 * qy, 2 * qy + 2), slice(2 * qx, 2 * qx + 2))
+            ref0[sl] = r0i
+            ref1[sl] = 0
+            if td == 0:
+                mv0[sl] = mv_col
+                mv1[sl] = 0
+            else:
+                q = 16384 + abs(td) // 2
+                tx = q // td if td > 0 else -(q // -td)
+                dsf = min(max((tb * tx + 32) >> 6, -1024), 1023)
+                m0 = np.array([(dsf * int(mv_col[0]) + 128) >> 8,
+                               (dsf * int(mv_col[1]) + 128) >> 8], np.int64)
+                mv0[sl] = m0
+                mv1[sl] = m0 - mv_col
+    return ref0, mv0, ref1, mv1
+
+
+def _b_direct_pred(self, mby, mbx):
+    """Direct derivation + per-cell MC for one MB; commits MV fields.
+
+    Returns [(py, pu, pv)] (already list-combined)."""
+    by, bx = mby * 4, mbx * 4
+    ref0, mv0, ref1, mv1 = self._b_direct_cells(mby, mbx)
+    py = np.zeros((16, 16), np.int64)
+    pu = np.zeros((8, 8), np.int64)
+    pv = np.zeros((8, 8), np.int64)
+    for cy4 in range(4):
+        for cx4 in range(4):
+            py_, px_ = (by + cy4) * 4, (bx + cx4) * 4
+            acc = []
+            for lst, (refc, mvc, refs) in enumerate(
+                    ((ref0, mv0, self.refs), (ref1, mv1, self.refs1))):
+                ri = int(refc[cy4, cx4])
+                if ri < 0:
+                    continue
+                mv = mvc[cy4, cx4]
+                rp = refs[ri]
+                acc.append((lst, ri,
+                            (rp.luma_block(py_, px_, 4, 4,
+                                           int(mv[0]), int(mv[1])),
+                             rp.chroma_block("u", py_ // 2, px_ // 2, 2, 2,
+                                             int(mv[0]), int(mv[1])),
+                             rp.chroma_block("v", py_ // 2, px_ // 2, 2, 2,
+                                             int(mv[0]), int(mv[1])))))
+            pl, puc, pvc = self._wp_combine(acc)
+            py[cy4 * 4:cy4 * 4 + 4, cx4 * 4:cx4 * 4 + 4] = pl
+            pu[cy4 * 2:cy4 * 2 + 2, cx4 * 2:cx4 * 2 + 2] = puc
+            pv[cy4 * 2:cy4 * 2 + 2, cx4 * 2:cx4 * 2 + 2] = pvc
+            self.mvf.set_partition(by + cy4, bx + cx4, 1, 1,
+                                   mv0[cy4, cx4], int(ref0[cy4, cx4]))
+            self.mvf1.set_partition(by + cy4, bx + cx4, 1, 1,
+                                    mv1[cy4, cx4], int(ref1[cy4, cx4]))
+    return [(py, pu, pv)]
+
+
+def _b_decode_direct(self, mb, skip=False):
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    preds = self._b_direct_pred(mby, mbx)
+    self._b_mc_bi(mby, mbx, preds)
+    by, bx = mby * 4, mbx * 4
+    self.st_nnz[by:by + 4, bx:bx + 4] = 0
+    self.nnz_c[:, mby * 2:mby * 2 + 2, mbx * 2:mbx * 2 + 2] = 0
+    self.mb_qp[mby, mbx] = self._prev_qp(mb)
+    self.i4_modes[by:by + 4, bx:bx + 4] = -1
+    return preds
+
 
 def _b_decode_mb(self, mb):
     r = self.r
@@ -1428,8 +2022,12 @@ def _b_decode_mb(self, mb):
         self.mb_intra[mby, mbx] = True
         return
     self.mb_intra[mby, mbx] = False
-    if mb_type in (0, 22):                   # B_Direct_16x16, B_8x8
-        raise NotImplementedError("B direct prediction is not ported")
+    subs = None
+    if mb_type == 22:                        # B_8x8 (Table 7-18 sub types)
+        subs = self._decode_b_8x8(mb)
+    elif mb_type == 0:                       # B_Direct_16x16
+        preds = self._decode_b_direct(mb)
+        self._b_mc_bi(mby, mbx, preds)
     else:
         # Table 7-14 partition shapes + per-partition pred modes
         L0, L1, BI = 1, 2, 3
@@ -1518,13 +2116,470 @@ def _b_decode_mb(self, mb):
     cbp = int(CODENUM_TO_CBP_INTER[
         self.top._tr(r, "coded_block_pattern", r.ue())])
     cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+    t8 = False
+    if cbp_luma > 0 and self.pps["transform_8x8"]:
+        # noSubMbPartSizeLessThan8x8Flag (spec 7.3.5): B_8x8 needs every
+        # sub >= 8x8 (or direct with inference); B_Direct_16x16 needs
+        # direct_8x8_inference_flag
+        inference = self.sps.get("direct_8x8_inference", 1)
+        if subs is not None:
+            ok = all(sx in (1, 2, 3) or (sx == 0 and inference)
+                     for sx in subs)
+        elif mb_type == 0:
+            ok = bool(inference)
+        else:
+            ok = True
+        if ok:
+            t8 = bool(self.top._tr(r, "transform_size_8x8_flag", r.u(1)))
+    self.transform8[mby, mbx] = t8
     qp = self._prev_qp(mb)
     if cbp > 0:
         qp = (qp + self.top._tr(r, "mb_qp_delta", r.se()) + 52) % 52
     self.mb_qp[mby, mbx] = qp
-    self._decode_residual_luma(mby, mbx, cbp_luma, qp, intra16=False)
+    if t8:
+        self._decode_residual_luma8(mby, mbx, cbp_luma, qp)
+    else:
+        self._decode_residual_luma(mby, mbx, cbp_luma, qp, intra16=False)
     self._decode_residual_chroma(mby, mbx, cbp_chroma, qp, intra=False)
 
 
 _SliceDecoder._decode_b_mb = _b_decode_mb
+_SliceDecoder._decode_b_direct = _b_decode_direct
+_SliceDecoder._b_direct_cells = _b_direct_cells
+_SliceDecoder._b_direct_pred = _b_direct_pred
+_SliceDecoder._b_mc_bi = _b_mc_bi
 
+
+# B_8x8 sub-partition decoding (Table 7-18; ldecod readMotionInfoFromNAL)
+_B_SUB = {0: ("direct", None), 1: ("l0", [(0, 0, 2, 2)]),
+          2: ("l1", [(0, 0, 2, 2)]), 3: ("bi", [(0, 0, 2, 2)]),
+          4: ("l0", [(0, 0, 2, 1), (1, 0, 2, 1)]),
+          5: ("l0", [(0, 0, 1, 2), (0, 1, 1, 2)]),
+          6: ("l1", [(0, 0, 2, 1), (1, 0, 2, 1)]),
+          7: ("l1", [(0, 0, 1, 2), (0, 1, 1, 2)]),
+          8: ("bi", [(0, 0, 2, 1), (1, 0, 2, 1)]),
+          9: ("bi", [(0, 0, 1, 2), (0, 1, 1, 2)]),
+          10: ("l0", [(0, 0, 1, 1), (0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 1, 1)]),
+          11: ("l1", [(0, 0, 1, 1), (0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 1, 1)]),
+          12: ("bi", [(0, 0, 1, 1), (0, 1, 1, 1), (1, 0, 1, 1), (1, 1, 1, 1)])}
+
+
+def _b_decode_8x8(self, mb):
+    r = self.r
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    by, bx = mby * 4, mbx * 4
+    subs = [self.top._tr(r, "sub_mb_type", r.ue()) for _ in range(4)]
+    if any(sx > 12 for sx in subs):
+        raise ValueError("bad B sub_mb_type")
+    kinds = [_B_SUB[sx][0] for sx in subs]
+
+    # MB-level direct derivation (once; used by direct 8x8s)
+    if "direct" in kinds:
+        ref0d, mv0d, ref1d, mv1d = self._b_direct_cells(mby, mbx)
+        for b8 in range(4):
+            if kinds[b8] != "direct":
+                continue
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            for cy in range(2):
+                for cx4 in range(2):
+                    cyy, cxx = dy8 + cy, dx8 + cx4
+                    self.mvf.set_partition(by + cyy, bx + cxx, 1, 1,
+                                           mv0d[cyy, cxx],
+                                           int(ref0d[cyy, cxx]))
+                    self.mvf1.set_partition(by + cyy, bx + cxx, 1, 1,
+                                            mv1d[cyy, cxx],
+                                            int(ref1d[cyy, cxx]))
+
+    ris0 = [0] * 4
+    ris1 = [0] * 4
+    for b8 in range(4):
+        if kinds[b8] in ("l0", "bi") and self.num_ref > 1:
+            ris0[b8] = self.top._tr(r, "ref_idx_l0",
+                                    _te(r, self.num_ref - 1))
+    for b8 in range(4):
+        if kinds[b8] in ("l1", "bi") and self.num_ref_l1 > 1:
+            ris1[b8] = self.top._tr(r, "ref_idx_l1",
+                                    _te(r, self.num_ref_l1 - 1))
+    mvs0 = {}
+    mvs1 = {}
+    for b8 in range(4):
+        if kinds[b8] in ("l0", "bi"):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            for gi, (sy, sx, w4, h4) in enumerate(_B_SUB[subs[b8]][1]):
+                pby, pbx = by + dy8 + sy, bx + dx8 + sx
+                pmv = self.mvf.predict(pby, pbx, w4, h4, ris0[b8])
+                mv = pmv + np.array([self.top._tr(r, "mvd_l0_x", r.se()),
+                                     self.top._tr(r, "mvd_l0_y", r.se())],
+                                    np.int64)
+                self.mvf.set_partition(pby, pbx, w4, h4, mv, ris0[b8])
+                mvs0[(b8, gi)] = mv
+        elif kinds[b8] != "direct":
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            self.mvf.set_partition(by + dy8, bx + dx8, 2, 2,
+                                   np.zeros(2, np.int64), -1)
+    for b8 in range(4):
+        if kinds[b8] in ("l1", "bi"):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            for gi, (sy, sx, w4, h4) in enumerate(_B_SUB[subs[b8]][1]):
+                pby, pbx = by + dy8 + sy, bx + dx8 + sx
+                pmv = self.mvf1.predict(pby, pbx, w4, h4, ris1[b8])
+                mv = pmv + np.array([self.top._tr(r, "mvd_l1_x", r.se()),
+                                     self.top._tr(r, "mvd_l1_y", r.se())],
+                                    np.int64)
+                self.mvf1.set_partition(pby, pbx, w4, h4, mv, ris1[b8])
+                mvs1[(b8, gi)] = mv
+        elif kinds[b8] != "direct":
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            self.mvf1.set_partition(by + dy8, bx + dx8, 2, 2,
+                                    np.zeros(2, np.int64), -1)
+
+    self._b_8x8_mc(mb, subs, kinds, ris0, ris1, mvs0, mvs1)
+    return subs
+
+
+def _b_8x8_mc(self, mb, subs, kinds, ris0, ris1, mvs0, mvs1):
+    """Per-sub-block MC of a B_8x8 MB (shared CAVLC/CABAC)."""
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    by, bx = mby * 4, mbx * 4
+    y0, x0 = mby * 16, mbx * 16
+    for b8 in range(4):
+        dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+        if kinds[b8] == "direct":
+            # per-4x4-cell MC from the committed direct field
+            for cy in range(2):
+                for cx4 in range(2):
+                    cby, cbx = by + dy8 + cy, bx + dx8 + cx4
+                    py_, px_ = cby * 4, cbx * 4
+                    acc = []
+                    for lst, (mvf, refs) in enumerate(
+                            ((self.mvf, self.refs),
+                             (self.mvf1, self.refs1))):
+                        ri = int(mvf.ref[cby, cbx])
+                        if ri < 0:
+                            continue
+                        mv = mvf.mv[cby, cbx]
+                        rp = refs[ri]
+                        acc.append((lst, ri,
+                                    (rp.luma_block(py_, px_, 4, 4,
+                                                   int(mv[0]), int(mv[1])),
+                                     rp.chroma_block("u", py_ // 2,
+                                                     px_ // 2, 2, 2,
+                                                     int(mv[0]), int(mv[1])),
+                                     rp.chroma_block("v", py_ // 2,
+                                                     px_ // 2, 2, 2,
+                                                     int(mv[0]),
+                                                     int(mv[1])))))
+                    pl, pu, pv = self._wp_combine(acc)
+                    self.rec_y[py_:py_ + 4, px_:px_ + 4] = pl
+                    self.rec_u[py_ // 2:py_ // 2 + 2,
+                               px_ // 2:px_ // 2 + 2] = pu
+                    self.rec_v[py_ // 2:py_ // 2 + 2,
+                               px_ // 2:px_ // 2 + 2] = pv
+            continue
+        for gi, (sy, sx, w4, h4) in enumerate(_B_SUB[subs[b8]][1]):
+            py_ = y0 + (dy8 + sy) * 4
+            px_ = x0 + (dx8 + sx) * 4
+            bh, bw = h4 * 4, w4 * 4
+            acc = []
+            if (b8, gi) in mvs0:
+                mv = mvs0[(b8, gi)]
+                rp = self.refs[ris0[b8]]
+                acc.append((0, ris0[b8],
+                            (rp.luma_block(py_, px_, bh, bw,
+                                           int(mv[0]), int(mv[1])),
+                             rp.chroma_block("u", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])),
+                             rp.chroma_block("v", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])))))
+            if (b8, gi) in mvs1:
+                mv = mvs1[(b8, gi)]
+                rp = self.refs1[ris1[b8]]
+                acc.append((1, ris1[b8],
+                            (rp.luma_block(py_, px_, bh, bw,
+                                           int(mv[0]), int(mv[1])),
+                             rp.chroma_block("u", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])),
+                             rp.chroma_block("v", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])))))
+            pl, pu, pv = self._wp_combine(acc)
+            self.rec_y[py_:py_ + bh, px_:px_ + bw] = pl
+            self.rec_u[py_ // 2:py_ // 2 + bh // 2,
+                       px_ // 2:px_ // 2 + bw // 2] = pu
+            self.rec_v[py_ // 2:py_ // 2 + bh // 2,
+                       px_ // 2:px_ // 2 + bw // 2] = pv
+
+
+_SliceDecoder._decode_b_8x8 = _b_decode_8x8
+_SliceDecoder._b_8x8_mc = _b_8x8_mc
+
+
+def _b_decode_mb_cabac(self, mb):
+    """Parse + reconstruct one B MB with CABAC (Table 9-37 mb_type,
+    per-list mvd/ref contexts; ldecod read_one_macroblock_b_slice_cabac
+    semantics).  mb_skip_flag is read by the caller."""
+    CB = self.CB
+    rd = self.crd
+    cst = self.cst
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    by, bx = mby * 4, mbx * 4
+    sl4 = (slice(by, by + 4), slice(bx, bx + 4))
+
+    c0 = CB._Common(cst, mby, mbx, intra=False)
+    mb_type, i16_code = rd.mb_type_b_slice(c0)
+    cst.btype0[mby, mbx] = mb_type == 0
+    b_subs = None
+    if mb_type == 25:
+        raise NotImplementedError("PCM in CABAC B")
+
+    if mb_type >= 23:                        # intra
+        intra_type = 0 if mb_type == 23 else i16_code
+        c = CB._Common(cst, mby, mbx, intra=True)
+        self._cabac_intra_mb(mby, mbx, intra_type, c)
+        self.mvf.set_partition(by, bx, 4, 4, np.zeros(2, np.int64), -1)
+        self.mvf1.set_partition(by, bx, 4, 4, np.zeros(2, np.int64), -1)
+        self.mb_intra[mby, mbx] = True
+        cst.cat[mby, mbx] = CB.MBState.CAT_I4 if intra_type == 0 \
+            else CB.MBState.CAT_I16
+        cst.direct[sl4] = False
+        return
+
+    self.mb_intra[mby, mbx] = False
+    cst.cat[mby, mbx] = CB.MBState.CAT_INTER
+    cst.cipred[mby, mbx] = 0
+    c = CB._Common(cst, mby, mbx, intra=False)
+
+    if mb_type == 0:                         # B_Direct_16x16
+        preds = self._b_direct_pred(mby, mbx)
+        self._b_mc_bi(mby, mbx, preds)
+        cst.direct[sl4] = True
+        cst.ref[sl4] = 0
+        cst.ref1[sl4] = 0
+        cst.mvd[sl4] = 0
+        cst.mvd1[sl4] = 0
+    elif mb_type == 22:                      # B_8x8
+        subs = [rd.sub_mb_type_b() for _ in range(4)]
+        self._b_8x8_body_cabac(mb, subs)
+        b_subs = subs
+    else:
+        L0, L1, BI = 1, 2, 3
+        if mb_type <= 3:
+            parts = [((0, 0, 4, 4), "none")]
+            modes = [(L0, L1, BI)[mb_type - 1]]
+        else:
+            idx = mb_type - 4
+            pair = [(L0, L0), (L1, L1), (L0, L1), (L1, L0), (L0, BI),
+                    (L1, BI), (BI, L0), (BI, L1), (BI, BI)][idx // 2]
+            if idx % 2 == 0:
+                parts = [((0, 0, 4, 2), "16x8_top"),
+                         ((2, 0, 4, 2), "16x8_bot")]
+            else:
+                parts = [((0, 0, 2, 4), "8x16_left"),
+                         ((0, 2, 2, 4), "8x16_right")]
+            modes = list(pair)
+        use0 = [m in (L0, BI) for m in modes]
+        use1 = [m in (L1, BI) for m in modes]
+        cst.direct[sl4] = False
+        ris0 = [0] * len(parts)
+        ris1 = [0] * len(parts)
+        for pi, ((dy4, dx4, w4, h4), tag) in enumerate(parts):
+            psl = (slice(by + dy4, by + dy4 + h4),
+                   slice(bx + dx4, bx + dx4 + w4))
+            if use0[pi] and self.num_ref > 1:
+                ris0[pi] = rd.ref_idx(c, by + dy4, bx + dx4, lst=0)
+            cst.ref[psl] = ris0[pi] if use0[pi] else 0
+        for pi, ((dy4, dx4, w4, h4), tag) in enumerate(parts):
+            psl = (slice(by + dy4, by + dy4 + h4),
+                   slice(bx + dx4, bx + dx4 + w4))
+            if use1[pi] and self.num_ref_l1 > 1:
+                ris1[pi] = rd.ref_idx(c, by + dy4, bx + dx4, lst=1)
+            cst.ref1[psl] = ris1[pi] if use1[pi] else 0
+        mvs0 = [None] * len(parts)
+        mvs1 = [None] * len(parts)
+        for pi, ((dy4, dx4, w4, h4), tag) in enumerate(parts):
+            psl = (slice(by + dy4, by + dy4 + h4),
+                   slice(bx + dx4, bx + dx4 + w4))
+            if use0[pi]:
+                pmv = self.mvf.predict(by + dy4, bx + dx4, w4, h4,
+                                       ris0[pi], tag)
+                dx = rd.mvd(c, by + dy4, bx + dx4, 0, lst=0)
+                dy = rd.mvd(c, by + dy4, bx + dx4, 1, lst=0)
+                cst.mvd[psl] = (dx, dy)
+                mv = pmv + np.array([dx, dy], np.int64)
+                self.mvf.set_partition(by + dy4, bx + dx4, w4, h4, mv,
+                                       ris0[pi])
+                mvs0[pi] = mv
+            else:
+                cst.mvd[psl] = 0
+                self.mvf.set_partition(by + dy4, bx + dx4, w4, h4,
+                                       np.zeros(2, np.int64), -1)
+        for pi, ((dy4, dx4, w4, h4), tag) in enumerate(parts):
+            psl = (slice(by + dy4, by + dy4 + h4),
+                   slice(bx + dx4, bx + dx4 + w4))
+            if use1[pi]:
+                pmv = self.mvf1.predict(by + dy4, bx + dx4, w4, h4,
+                                        ris1[pi], tag)
+                dx = rd.mvd(c, by + dy4, bx + dx4, 0, lst=1)
+                dy = rd.mvd(c, by + dy4, bx + dx4, 1, lst=1)
+                cst.mvd1[psl] = (dx, dy)
+                mv = pmv + np.array([dx, dy], np.int64)
+                self.mvf1.set_partition(by + dy4, bx + dx4, w4, h4, mv,
+                                        ris1[pi])
+                mvs1[pi] = mv
+            else:
+                cst.mvd1[psl] = 0
+                self.mvf1.set_partition(by + dy4, bx + dx4, w4, h4,
+                                        np.zeros(2, np.int64), -1)
+        y0, x0 = mby * 16, mbx * 16
+        for pi, ((dy4, dx4, w4, h4), tag) in enumerate(parts):
+            py_, px_ = y0 + dy4 * 4, x0 + dx4 * 4
+            bh, bw = h4 * 4, w4 * 4
+            acc = []
+            for lst, (mv, ris, refs) in enumerate(
+                    ((mvs0[pi], ris0, self.refs),
+                     (mvs1[pi], ris1, self.refs1))):
+                if mv is None:
+                    continue
+                rp = refs[ris[pi]]
+                acc.append((lst, ris[pi],
+                            (rp.luma_block(py_, px_, bh, bw,
+                                           int(mv[0]), int(mv[1])),
+                             rp.chroma_block("u", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])),
+                             rp.chroma_block("v", py_ // 2, px_ // 2,
+                                             bh // 2, bw // 2,
+                                             int(mv[0]), int(mv[1])))))
+            pl, pu, pv = self._wp_combine(acc)
+            self.rec_y[py_:py_ + bh, px_:px_ + bw] = pl
+            self.rec_u[py_ // 2:py_ // 2 + bh // 2,
+                       px_ // 2:px_ // 2 + bw // 2] = pu
+            self.rec_v[py_ // 2:py_ // 2 + bh // 2,
+                       px_ // 2:px_ // 2 + bw // 2] = pv
+
+    cbp = rd.cbp(c)
+    cst.cbp[mby, mbx] = cbp
+    cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+    t8 = False
+    if cbp_luma > 0 and self.pps["transform_8x8"]:
+        inference = self.sps.get("direct_8x8_inference", 1)
+        if b_subs is not None:
+            ok = all(sx in (1, 2, 3) or (sx == 0 and inference)
+                     for sx in b_subs)
+        elif mb_type == 0:
+            ok = bool(inference)
+        else:
+            ok = True
+        if ok:
+            t8 = rd.transform_size_flag(c)
+    self.transform8[mby, mbx] = t8
+    qp = self._prev_qp(mb)
+    if cbp > 0:
+        qp = (qp + rd.mb_qp_delta(c) + 52) % 52
+    else:
+        cst.last_dqp = 0
+    self.mb_qp[mby, mbx] = qp
+    if t8:
+        self._cabac_residual_luma8(mby, mbx, cbp_luma, qp, c)
+    else:
+        self._cabac_residual_luma(mby, mbx, cbp_luma, qp, c,
+                                  intra16=False)
+    self._cabac_residual_chroma(mby, mbx, cbp_chroma, qp, c, intra=False)
+
+
+def _b_8x8_body_cabac(self, mb, subs):
+    """B_8x8 with CABAC-read sub types/refs/mvds; reuses the per-cell MC
+    of the CAVLC path's structures."""
+    CB = self.CB
+    rd = self.crd
+    cst = self.cst
+    mby, mbx = mb // self.mb_w, mb % self.mb_w
+    by, bx = mby * 4, mbx * 4
+    kinds = [_B_SUB[sx][0] for sx in subs]
+    c = CB._Common(cst, mby, mbx, intra=False)
+
+    if "direct" in kinds:
+        ref0d, mv0d, ref1d, mv1d = self._b_direct_cells(mby, mbx)
+    for b8 in range(4):
+        dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+        s8 = (slice(by + dy8, by + dy8 + 2), slice(bx + dx8, bx + dx8 + 2))
+        if kinds[b8] == "direct":
+            cst.direct[s8] = True
+            cst.ref[s8] = 0
+            cst.ref1[s8] = 0
+            for cy in range(2):
+                for cx4 in range(2):
+                    cyy, cxx = dy8 + cy, dx8 + cx4
+                    self.mvf.set_partition(by + cyy, bx + cxx, 1, 1,
+                                           mv0d[cyy, cxx],
+                                           int(ref0d[cyy, cxx]))
+                    self.mvf1.set_partition(by + cyy, bx + cxx, 1, 1,
+                                            mv1d[cyy, cxx],
+                                            int(ref1d[cyy, cxx]))
+        else:
+            cst.direct[s8] = False
+
+    ris0 = [0] * 4
+    ris1 = [0] * 4
+    for b8 in range(4):
+        dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+        s8 = (slice(by + dy8, by + dy8 + 2), slice(bx + dx8, bx + dx8 + 2))
+        if kinds[b8] in ("l0", "bi"):
+            if self.num_ref > 1:
+                ris0[b8] = rd.ref_idx(c, by + dy8, bx + dx8, lst=0)
+            cst.ref[s8] = ris0[b8]
+        elif kinds[b8] != "direct":
+            cst.ref[s8] = 0
+    for b8 in range(4):
+        dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+        s8 = (slice(by + dy8, by + dy8 + 2), slice(bx + dx8, bx + dx8 + 2))
+        if kinds[b8] in ("l1", "bi"):
+            if self.num_ref_l1 > 1:
+                ris1[b8] = rd.ref_idx(c, by + dy8, bx + dx8, lst=1)
+            cst.ref1[s8] = ris1[b8]
+        elif kinds[b8] != "direct":
+            cst.ref1[s8] = 0
+
+    mvs0 = {}
+    mvs1 = {}
+    for b8 in range(4):
+        if kinds[b8] in ("l0", "bi"):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            for gi, (sy, sx, w4, h4) in enumerate(_B_SUB[subs[b8]][1]):
+                pby, pbx = by + dy8 + sy, bx + dx8 + sx
+                pmv = self.mvf.predict(pby, pbx, w4, h4, ris0[b8], "none")
+                dx = rd.mvd(c, pby, pbx, 0, lst=0)
+                dy = rd.mvd(c, pby, pbx, 1, lst=0)
+                cst.mvd[pby:pby + h4, pbx:pbx + w4] = (dx, dy)
+                mv = pmv + np.array([dx, dy], np.int64)
+                self.mvf.set_partition(pby, pbx, w4, h4, mv, ris0[b8])
+                mvs0[(b8, gi)] = mv
+        elif kinds[b8] != "direct":
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            self.mvf.set_partition(by + dy8, bx + dx8, 2, 2,
+                                   np.zeros(2, np.int64), -1)
+    for b8 in range(4):
+        if kinds[b8] in ("l1", "bi"):
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            for gi, (sy, sx, w4, h4) in enumerate(_B_SUB[subs[b8]][1]):
+                pby, pbx = by + dy8 + sy, bx + dx8 + sx
+                pmv = self.mvf1.predict(pby, pbx, w4, h4, ris1[b8], "none")
+                dx = rd.mvd(c, pby, pbx, 0, lst=1)
+                dy = rd.mvd(c, pby, pbx, 1, lst=1)
+                cst.mvd1[pby:pby + h4, pbx:pbx + w4] = (dx, dy)
+                mv = pmv + np.array([dx, dy], np.int64)
+                self.mvf1.set_partition(pby, pbx, w4, h4, mv, ris1[b8])
+                mvs1[(b8, gi)] = mv
+        elif kinds[b8] != "direct":
+            dy8, dx8 = (b8 >> 1) * 2, (b8 & 1) * 2
+            self.mvf1.set_partition(by + dy8, bx + dx8, 2, 2,
+                                    np.zeros(2, np.int64), -1)
+
+    self._b_8x8_mc(mb, subs, kinds, ris0, ris1, mvs0, mvs1)
+
+
+_SliceDecoder._decode_b_mb_cabac = _b_decode_mb_cabac
+_SliceDecoder._b_8x8_body_cabac = _b_8x8_body_cabac

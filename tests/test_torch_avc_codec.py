@@ -161,6 +161,14 @@ def test_encode_loads_no_jax():
         "r, s = DeviceAVCCodec(AVCParams(width=32, height=32), search_range=2,"
         " device='cpu').encode_sequence(f)\n"
         "assert len(r) == 2 and s\n"
+        "f = [(np.full((32, 32), 100 + 3 * i, np.uint8),"
+        " np.full((16, 16), 128, np.uint8), np.full((16, 16), 90, np.uint8))"
+        " for i in range(5)]\n"
+        "p = AVCParams(width=32, height=32, profile_idc=77, poc_type=0,"
+        " num_ref_frames=3, cabac=True)\n"
+        "r, s = DeviceAVCCodec(p, search_range=2, bframes=3, hierarchical=True,"
+        " device='cpu').encode_sequence(f)\n"
+        "assert [x.frame_type for x in r] == ['IDR', 'B', 'B', 'B', 'P'] and s\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'h264tpu' or m.startswith('h264tpu.')]\n"
         "print('BAD', bad)\n")
@@ -178,9 +186,12 @@ def test_no_device_without_a_card_raises():
         DeviceAVCCodec(AVCParams(width=32, height=32))
 
 
+# options that raise in both packages (the last two are TPUAVCCodec's own
+# limits, which the port keeps)
 UNPORTED = {
-    "cabac": (dict(cabac=True, profile_idc=77), {}),
-    "b_frames": ({}, dict(bframes=1)),
+    "b_frames_transform8": (dict(profile_idc=100, transform_8x8=True,
+                                 poc_type=0), dict(bframes=1)),
+    "sub8x8_cabac": (dict(cabac=True, profile_idc=77), dict(sub8x8=True)),
     "weighted_pred": (dict(weighted_pred=True, profile_idc=77), {}),
     "mesh": ({}, dict(mesh=object())),
     "data_partitioning": ({}, dict(data_partitioning=True)),

@@ -178,3 +178,27 @@ def test_native_stages_equal_twins_on_card_frames():
         rows = dict(row0=3 * s, n_rows=3)
         assert AN.pack_slice(sym, p, SLICE_P, 28, 1, False, 0, 1, **rows) \
             == PK.pack_p_slice(sym, p, 28, frame_num=1, num_ref=1, **rows)
+
+
+@pytest.mark.gpu
+def test_avc_hierb_cabac_card_stream_equals_cpu_stream():
+    """A hierarchical-B CABAC QCIF stream (3 slices, IDR + one GOP of 4)
+    from the card equals the CPU's, which the CPU tests hold against the
+    JAX package, and decodes to the encoder's reconstruction."""
+    _need_card()
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    p = AVCParams(width=176, height=144, qp=28, profile_idc=77, poc_type=0,
+                  num_ref_frames=3, cabac=True)
+    frames = _blocky_frames(5, 144, 176)
+    out = {dev: DeviceAVCCodec(p, search_range=8, n_slices=3, bframes=3,
+                               hierarchical=True,
+                               device=dev).encode_sequence(frames)
+           for dev in ("cpu", "cuda")}
+    res, s_gpu = out["cuda"]
+    assert s_gpu == out["cpu"][1]
+    assert [r.frame_type for r in res] == ["IDR", "B", "B", "B", "P"]
+    for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
+        for a, b in zip(r.recon, planes):
+            np.testing.assert_array_equal(a, b)

@@ -62,7 +62,25 @@ Phases, in order; any failure exits non-zero before the result line:
    one GOP of 4, encode only: per-frame host ms of the CABAC packer and
    the deblock, the device stages of the P anchor and of one B frame, and
    the peak device memory;
-10. the native host stages (``csrc/avc_native.cpp``, built with g++ in
+10. explicit weighted prediction at the CIF settings of phase 5 (Main,
+   CAVLC, 2 references, 9 slices) on an additive fade (luma +6 a frame),
+   1 IDR + 4 P, with the DC-ratio and the least-squares estimators: each
+   stream decodes bit-exactly; reference 0's luma weight and offset per
+   frame, steady-state P fps;
+11. quadratic rate control at the CIF settings on frames whose top third is
+   flat, 1 IDR + 5 P: ``rc_mode`` 1 (one QP per frame), then ``rc_mode`` 3
+   with the 9 slices as basic units, which must give some P frame more
+   than one slice QP; QPs, bits against the budget, P fps, bit-exact
+   decode;
+12. data partitioning (Extended profile) at the CIF settings, 1 IDR + 4 P
+   with a forced-intra MB row in frame 2: NAL types 2, 3 and 4, a partition
+   B with residual, bit-exact decode;
+13. QCIF in 3 slices, card stream == CPU stream and decoded: WP (LMS), rate
+   control ``rc_mode`` 3, data partitioning;
+14. ``rc_mode`` 3 at 1920x1088 in 17 slices, IDR + 2 P, encode only: the
+   last P frame's 17 slice QPs (split), its stages at those QPs, and the
+   peak device memory;
+15. the native host stages (``csrc/avc_native.cpp``, built with g++ in
    phase 1) against their numpy twins on frames of phases 5 and 6: equal
    planes and bytes, with both times.
 
@@ -482,6 +500,19 @@ def phase_card_vs_cpu(seed: int):
 AVC_QP, AVC_SR = 28, 8
 
 
+def option_codec(H: int, W: int, n_slices: int, device: str, fields=None,
+                 **kw):
+    """``bench_avc``'s encoder (QP 28, SR 8, level 4.2) with further
+    AVCParams ``fields`` and DeviceAVCCodec options ``kw``."""
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    f = dict(num_ref_frames=1, level_idc=42)
+    f.update(fields or {})
+    p = AVCParams(width=W, height=H, qp=AVC_QP, **f)
+    return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
+                          n_slices=n_slices, device=device, **kw)
+
+
 def avc_codec(H: int, W: int, n_slices: int, device: str,
               high: dict = None):
     """``bench_avc``'s encoder, or with ``high`` (AVCParams fields plus
@@ -491,10 +522,7 @@ def avc_codec(H: int, W: int, n_slices: int, device: str,
     from h264tpu_torch.avc.params import AVCParams
     from h264tpu_torch.avc.device_codec import DeviceAVCCodec
     if high is None:
-        p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=1,
-                      level_idc=42)
-        return DeviceAVCCodec(p, intra_period=0, search_range=AVC_SR,
-                              n_slices=n_slices, device=device)
+        return option_codec(H, W, n_slices, device)
     high = dict(high)
     sub8x8 = high.pop("sub8x8", False)
     p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=1,
@@ -565,9 +593,19 @@ class HostStageRecorder:
                 [c for c in self.packs if c[0][0] is sym])
 
 
-def avc_stages(codec, frame, ref_rec):
+def mb_lambda_me(codec, qp):
+    """lambda_me of every MB as ``device_enc.search`` passes it to Stages A
+    and B: [nmb] float64 on the card, each MB at its slice's QP."""
+    from h264tpu_torch.avc import device_enc as DE
+    p = codec.p
+    qp_l = DE.lane_qp(qp, p.mb_h, codec.n_slices, "cuda")
+    return DE.lane_lambdas(qp_l)[1].repeat_interleave(p.mb_w)
+
+
+def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
     """Device ms of each stage of one P frame (CUDA events around the calls
-    ``device_enc.encode_frame`` makes), the second of two runs.  The
+    ``device_enc.encode_frame`` makes) at ``qp`` (the frame QP or one per
+    slice), the second of two runs.  The
     decision scan is its eager first step plus the graph replays of the
     others; ``graph_capture`` is the interval between them, during which
     the card waits for the host to capture the step.  ``host_enqueue`` is
@@ -582,22 +620,23 @@ def avc_stages(codec, frame, ref_rec):
     y, u, v = (torch.as_tensor(pl).cuda().to(torch.int32) for pl in frame)
     ups, us, vs = (x[None] for x in DE.prep_ref(
         *(torch.as_tensor(pl).cuda() for pl in ref_rec), sr))
-    _, lam_me = DE.lambdas(AVC_QP)
     force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool, device="cuda")
+    lam_me = mb_lambda_me(codec, qp)
     for _ in range(2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         marks = []
         t0 = time.perf_counter()
         ev[0].record()
         mv_int, _, pmv2 = DE._integer_search(
-            y, ups[:, 0, 0].to(torch.int32), sr, lam_me,
+            y, ups[:, 0, 0].to(torch.int32), sr, lam_me.reshape(1, 1, 1, -1),
             band_rows=p.mb_h // codec.n_slices, sub8x8=codec.sub8x8)
         ev[1].record()
-        mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me,
+        mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr,
+                                        lam_me.reshape(1, -1, 1),
                                         sub8x8=codec.sub8x8)
         ev[2].record()
         sym, st = DE.decide(y, u, v, ups, us, vs, mv_q.permute(2, 0, 1, 3),
-                            sad_q.permute(2, 0, 1), AVC_QP, 1, force, sr=sr,
+                            sad_q.permute(2, 0, 1), qp, 1, force, sr=sr,
                             sb_h=p.mb_h // codec.n_slices, intra_only=False,
                             marks=marks, **opts)
         ev[3].record()
@@ -916,7 +955,7 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
                          device="cuda")
     col_ref = torch.full((mb_h * 4, mb_w * 4), -1, dtype=torch.int32,
                          device="cuda")
-    _, lam_me = DE.lambdas(qp)
+    lam_me = mb_lambda_me(codec, qp)
     rows = mb_h // codec.n_slices
     for _ in range(2):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
@@ -926,10 +965,11 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
         found = []
         for li, (ups, _, _) in enumerate(refs):
             mv_int, _, pmv2 = DE._integer_search(
-                y, ups[:, 0, 0].to(torch.int32), sr, lam_me, band_rows=rows,
-                only16=True)
+                y, ups[:, 0, 0].to(torch.int32), sr,
+                lam_me.reshape(1, 1, 1, -1), band_rows=rows, only16=True)
             ev[1 + 2 * li].record()
-            mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr, lam_me,
+            mv_q, sad_q = DE._subpel_refine(y, ups, mv_int, pmv2, sr,
+                                            lam_me.reshape(1, -1, 1),
                                             only16=True)
             ev[2 + 2 * li].record()
             found += [mv_q[:, 0].permute(1, 0, 2), sad_q[:, 0].permute(1, 0)]
@@ -1165,6 +1205,261 @@ def phase_native_vs_twin(cases):
         print(f"[native vs twin] {label}: {msg}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the IPPP options: explicit WP, rate control, data partitioning
+# ---------------------------------------------------------------------------
+
+def fade_frames(n: int, H: int, W: int, seed: int, step: int = 6):
+    """The blocky frames with an additive luma fade: +``step`` per frame,
+    clipped."""
+    return [(np.clip(y.astype(np.int64) + step * i, 0, 255).astype(np.uint8),
+             u, v) for i, (y, u, v) in enumerate(blocky_frames(n, H, W, seed))]
+
+
+def banded_frames(n: int, H: int, W: int, seed: int):
+    """The blocky frames with the top third of the luma flat (128), so the
+    row-band slices differ in activity, as ``tests/test_tpu_avc.py``'s
+    basic-unit rate-control test makes its frames."""
+    out = []
+    for y, u, v in blocky_frames(n, H, W, seed):
+        y = y.copy()
+        y[:H // 3] = 128
+        out.append((y, u, v))
+    return out
+
+
+class FrameArgs:
+    """Records, inside ``with``, the QP (frame or per slice) and the WP table
+    that ``codec.encode_frame`` is called with for each frame."""
+
+    def __init__(self, codec):
+        self.codec, self.qps, self.wps = codec, [], []
+
+    def __enter__(self):
+        enc = self.codec.encode_frame
+
+        def rec(yuv, refs, qp, *a, **k):
+            self.qps.append(qp)
+            self.wps.append(k.get("wp"))
+            return enc(yuv, refs, qp, *a, **k)
+
+        self.codec.encode_frame = rec
+        return self
+
+    def __exit__(self, *exc):
+        del self.codec.encode_frame
+
+
+def decode_check(label: str, stream: bytes, results):
+    """The port's decoder reproduces the encoder's reconstruction."""
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    t0 = time.perf_counter()
+    decoded = AVCDecoder().decode(stream)
+    dec_s = time.perf_counter() - t0
+    check(len(decoded) == len(results), f"{label}: decoder frame count")
+    for i, (r, planes) in enumerate(zip(results, decoded)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"{label}: decoded frame {i} plane {c} != encoder recon")
+    return dec_s
+
+
+def host_pack_ms(codec) -> str:
+    """Mean host ms per P frame of the last sequence's packer and deblock."""
+    return (f"host ms per P frame: pack {np.mean(codec.host_ms['pack'][1:]):.1f}, "
+            f"deblock {np.mean(codec.host_ms['deblock'][1:]):.1f}")
+
+
+def timed_sequence(codec, frames, **kw):
+    """(results, stream, seconds of the whole sequence, steady-state P fps)
+    on the host clock, synchronised: a warm encode of two frames, then
+    (1 IDR + n P) - (1 IDR); ``kw`` (a ``rate_control`` factory) goes to
+    every run."""
+    import torch
+
+    def run(fr):
+        args = {k: f() for k, f in kw.items()}
+        t0 = time.perf_counter()
+        out = codec.encode_sequence(fr, **args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(frames[:2])
+    _, idr_s = run(frames[:1])
+    codec.host_ms = dict(pack=[], deblock=[])
+    (results, stream), seq_s = run(frames)
+    return results, stream, seq_s, (len(frames) - 1) / (seq_s - idr_s)
+
+
+WP_FIELDS = dict(profile_idc=77, weighted_pred=True, num_ref_frames=2)
+
+
+def phase_avc_wp_cif(seed: int):
+    """Explicit WP at bench_avc's CIF settings (9 slices), Main, CAVLC, two
+    references, on an additive fade, with both estimators."""
+    H, W, n = 288, 352, 5
+    frames = fade_frames(n, H, W, seed)
+    for method in ("dc", "lms"):
+        codec = option_codec(H, W, 9, "cuda", WP_FIELDS, wp_method=method)
+        with FrameArgs(codec) as fa:
+            results, stream, seq_s, p_fps = timed_sequence(codec, frames)
+        label = f"avc cif wp {method}"
+        check([r.frame_type for r in results] == ["IDR"] + ["P"] * (n - 1),
+              f"{label}: unexpected frame types")
+        dec_s = decode_check(label, stream, results)
+        w0 = [None if w is None else w["l0"][0][:2] for w in fa.wps[-n:]]
+        check(any(w not in (None, (32, 0)) for w in w0),
+              f"{label}: every reference 0 luma weight was the default")
+        print(f"[{label}] bits {[r.bits for r in results]}, PSNR-Y "
+              f"{[round(r.psnr_y, 3) for r in results]}; reference 0 luma "
+              f"(weight, offset) per frame {w0}; decode bit-exact in "
+              f"{dec_s:.3f} s; 1 IDR + {n - 1} P {seq_s:.3f} s, steady-state "
+              f"P {p_fps:.3f} fps; {host_pack_ms(codec)}", flush=True)
+
+
+def fixed_qp_bps(codec, frames) -> float:
+    """The rate budget of a rate-control phase: the mean P-frame bits of a
+    fixed-QP encode of ``frames`` (QP 28) at 30 frames/s, so that the
+    controller's QPs stay near 28 where the slices' activities split
+    them."""
+    results, _ = codec.encode_sequence(frames)
+    return float(np.mean([r.bits for r in results[1:]])) * 30.0
+
+
+def slice_qps_of(qp, n_slices: int) -> list:
+    return [int(qp)] * n_slices if isinstance(qp, (int, np.integer)) \
+        else [int(q) for q in qp]
+
+
+def phase_avc_rc_cif(seed: int):
+    """Quadratic rate control at the CIF settings: rc_mode 1 (one QP per
+    frame), then rc_mode 3 with the 9 slices as basic units."""
+    from h264tpu_torch.models.ratectl import QuadraticRateControl
+    H, W, n = 288, 352, 6
+    frames = banded_frames(n, H, W, seed)
+    bps = fixed_qp_bps(option_codec(H, W, 9, "cuda"), frames[:3])
+    for mode in (1, 3):
+        codec = option_codec(H, W, 9, "cuda")
+
+        def controller():
+            return QuadraticRateControl(bps, 30.0, AVC_QP, rc_mode=mode)
+
+        with FrameArgs(codec) as fa:
+            results, stream, seq_s, p_fps = timed_sequence(
+                codec, frames, rate_control=controller)
+        label = f"avc cif rc_mode {mode}"
+        check([r.frame_type for r in results] == ["IDR"] + ["P"] * (n - 1),
+              f"{label}: unexpected frame types")
+        dec_s = decode_check(label, stream, results)
+        sq = [slice_qps_of(q, 9) for q in fa.qps[-n:]]
+        split = sum(len(set(q)) > 1 for q in sq)
+        check(split == 0 if mode == 1 else split >= 1,
+              f"{label}: {split} frames with more than one slice QP")
+        budget = bps / 30.0
+        print(f"[{label}] QP per frame {fa.qps[-n:]} (rc_mode 3: per "
+              f"slice, the frame QP their rounded mean); bits {[r.bits for r in results]} against "
+              f"{budget:.0f} a frame (frames 1-2 at fixed QP 28; the P "
+              f"frames here {np.mean([r.bits for r in results[1:]]) / budget:.3f} "
+              f"of it); "
+              f"decode bit-exact in {dec_s:.3f} s; 1 IDR + {n - 1} P "
+              f"{seq_s:.3f} s, steady-state P {p_fps:.3f} fps; "
+              f"{host_pack_ms(codec)}", flush=True)
+
+
+def force_row_in_frame2(mb_h: int, mb_w: int, row: int):
+    def force(idx):
+        if idx != 2:
+            return None
+        m = np.zeros((mb_h, mb_w), bool)
+        m[row] = True
+        return m
+    return force
+
+
+def phase_avc_dp_cif(seed: int):
+    """Data partitioning (Extended profile) at the CIF settings, with a
+    forced-intra MB row in frame 2 so that a partition B carries residual."""
+    from h264tpu_torch.bitstream.nal import annexb_parse
+    H, W, n = 288, 352, 5
+    frames = blocky_frames(n, H, W, seed)
+    codec = option_codec(H, W, 9, "cuda", dict(profile_idc=88),
+                         data_partitioning=True)
+    force = force_row_in_frame2(H // 16, W // 16, 5)
+    results, stream, seq_s, p_fps = timed_sequence(
+        codec, frames, force_intra=lambda: force)
+    nals = list(annexb_parse(stream))
+    count = {t: sum(x.nal_type == t for x in nals) for t in (2, 3, 4, 5)}
+    check(count[2] == count[3] == count[4] == 9 * (n - 1),
+          f"avc cif dp: NAL types {count}")
+    b_bytes = max(len(x.rbsp) for x in nals if x.nal_type == 3)
+    check(b_bytes > 1, "avc cif dp: every partition B is empty")
+    dec_s = decode_check("avc cif dp", stream, results)
+    print(f"[avc cif dp] NAL units by type {count}, largest partition B "
+          f"{b_bytes} bytes; bits {[r.bits for r in results]}; decode "
+          f"bit-exact in {dec_s:.3f} s; 1 IDR + {n - 1} P {seq_s:.3f} s, "
+          f"steady-state P {p_fps:.3f} fps; {host_pack_ms(codec)} (the "
+          f"numpy packer writes the partitions)", flush=True)
+
+
+def phase_avc_options_card_vs_cpu(seed: int):
+    """QCIF in 3 slices, card stream == CPU stream: WP (LMS), rate control
+    rc_mode 3, data partitioning."""
+    from h264tpu_torch.models.ratectl import QuadraticRateControl
+    H, W = 144, 176
+    cases = {"wp_lms": (fade_frames(4, H, W, seed), WP_FIELDS,
+                        dict(wp_method="lms"), False),
+             "rc_mode3": (banded_frames(5, H, W, seed), {}, {}, True),
+             "dp": (blocky_frames(4, H, W, seed), dict(profile_idc=88),
+                    dict(data_partitioning=True), False)}
+    for name, (frames, fields, kw, rc) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ctl = QuadraticRateControl(300_000.0, 30.0, AVC_QP, rc_mode=3) \
+                if rc else None
+            out[dev] = option_codec(H, W, 3, dev, fields, **kw
+                                    ).encode_sequence(frames,
+                                                      rate_control=ctl)
+        (res, s_gpu), (_, s_cpu) = out["cuda"], out["cpu"]
+        streams = dict(cuda=s_gpu, cpu=s_cpu)
+        check(s_gpu == s_cpu,
+              f"AVC QCIF {name} stream from the card != stream from the CPU")
+        decode_check(f"avc qcif {name}", s_gpu, res)
+        print(f"[avc qcif {name}] card stream == CPU stream "
+              f"({len(streams['cuda'])} bytes), decoded bit-exactly; bits "
+              f"{[r.bits for r in res]}", flush=True)
+
+
+def phase_avc_rc_1080p(seed: int):
+    """rc_mode 3 at 1920x1088 in 17 slices, IDR + 2 P, encode only: the
+    second P frame is the first with per-unit MADs to split its QPs by."""
+    import torch
+    from h264tpu_torch.models.ratectl import QuadraticRateControl
+    H, W, n = 1088, 1920, 3
+    frames = banded_frames(n, H, W, seed)
+    codec = option_codec(H, W, 17, "cuda")
+    rc = QuadraticRateControl(fixed_qp_bps(codec, frames[:2]), 30.0, AVC_QP,
+                              rc_mode=3)
+    torch.cuda.reset_peak_memory_stats()
+    with FrameArgs(codec) as fa:
+        t0 = time.perf_counter()
+        results, _ = codec.encode_sequence(frames, rate_control=rc)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    check([r.frame_type for r in results] == ["IDR", "P", "P"]
+          and all(np.isfinite(r.psnr_y) for r in results),
+          "AVC rc_mode 3 1080p encode failed")
+    qps = slice_qps_of(fa.qps[-1], 17)
+    check(len(set(qps)) > 1, f"avc 1080p rc_mode 3: one slice QP {qps}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[avc 1080p rc_mode 3] IDR + 2 P encode {seq_s:.3f} s, bits "
+          f"{[r.bits for r in results]}, peak device memory {peak:.3f} GiB; "
+          f"the last P frame's 17 slice QPs {qps}", flush=True)
+    stages = avc_stages(codec, frames[2], results[1].recon, qps)
+    print("[avc 1080p rc_mode 3] that P frame by stage at its slice QPs, ms "
+          "between CUDA events: " + json.dumps(
+              {k: round(v, 3) for k, v in stages.items()}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1206,6 +1501,12 @@ def main(argv=None) -> int:
     timed("avc hier-B cabac cif", phase_avc_hierb_cif, args.seed, args.trace)
     timed("avc qcif B card vs cpu", phase_avc_b_card_vs_cpu, args.seed)
     timed("avc hier-B cabac 1080p", phase_avc_hierb_1080p, args.seed)
+    timed("avc cif wp", phase_avc_wp_cif, args.seed)
+    timed("avc cif rate control", phase_avc_rc_cif, args.seed)
+    timed("avc cif data partitioning", phase_avc_dp_cif, args.seed)
+    timed("avc qcif options card vs cpu", phase_avc_options_card_vs_cpu,
+          args.seed)
+    timed("avc 1080p rate control", phase_avc_rc_1080p, args.seed)
     timed("native vs twin", phase_native_vs_twin, [
         ("avc cif last P", rec_cif, -1), ("avc high cif IDR", rec_high, 0),
         ("avc high cif last P", rec_high, -1),

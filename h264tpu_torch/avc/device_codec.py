@@ -15,11 +15,14 @@ its slices are packed after the next frame's device work has been queued.
 Ported: IPPP with periodic IDR, CAVLC and CABAC, full-RD mode decision with
 adaptive rounding and RD-gated decimation, row-band slices, multiple
 reference frames, High profile's per-MB 8x8 transform, P_8x8
-sub-partitions (``sub8x8``) and the spec default scaling lists, and B
+sub-partitions (``sub8x8``) and the spec default scaling lists, explicit
+weighted prediction (CAVLC IPPP; ``wp_method`` "dc" or "lms"), quadratic
+rate control (``encode_sequence(rate_control=...)``, with one QP per
+row-band slice in ``rc_mode`` 3), data partitioning (CAVLC IPPP), and B
 pictures (``bframes``: IbbP, or the dyadic hierarchical GOP of 4 with
-``hierarchical=True``) with spatial direct, under CAVLC or CABAC.  Weighted
-prediction, data partitioning, rate control and a device mesh raise
-``NotImplementedError``.
+``hierarchical=True``) with spatial direct, under CAVLC or CABAC.  A device
+mesh raises ``NotImplementedError``, as do the option pairs
+``TPUAVCCodec`` refuses.
 
 Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 """
@@ -40,6 +43,7 @@ from . import pack as PK
 from . import pack_cabac as PKC
 from .deblock import DeblockContext
 from .params import AVCParams, assemble_stream, SLICE_I, SLICE_P
+from .wp import estimate_wp, estimate_wp_lms
 
 
 @dataclasses.dataclass
@@ -94,12 +98,19 @@ def host_context(ctx: dict, rec) -> tuple:
 
 
 def deblock_context(ctx_np: dict, mb_h: int, mb_w: int, qp: int,
-                    chroma_qp_offset: int, idr: bool) -> DeblockContext:
+                    chroma_qp_offset: int, idr: bool,
+                    slice_qps=None) -> DeblockContext:
     """The deblocking context of a frame from its host ``ctx``, as
     ``TPUAVCCodec`` builds it: inter state for P frames, and for 8x8-
     transform MBs the four 4x4 counts of each 8x8 summed over its cells
-    (bS tests the 8x8 block's coded status; internal 4x4 edges skip)."""
+    (bS tests the 8x8 block's coded status; internal 4x4 edges skip).
+    ``slice_qps``: one QP per row-band slice (basic-unit rate control; the
+    filter averages neighbour MB QPs across the band edge)."""
     ctx = DeblockContext(mb_w, mb_h, qp, chroma_qp_offset)
+    if slice_qps is not None:
+        rows = mb_h // len(slice_qps)
+        for s, q in enumerate(slice_qps):
+            ctx.mb_qp[s * rows:(s + 1) * rows, :] = q
     if not idr:
         ctx.mb_intra = ctx_np["mb_intra"]
         ctx.nnz = np.asarray(ctx_np["nnz"], np.int64)
@@ -119,24 +130,30 @@ class DeviceAVCCodec:
     """Baseline/Main/High H.264 encoder with all pixel work on one device."""
 
     def __init__(self, p: AVCParams, intra_period: int = 0,
-                 search_range: int = 16, n_slices: int = 1, mesh=None, bframes: int = 0,
+                 search_range: int = 16, n_slices: int = 1, mesh=None,
+                 bframes: int = 0,
                  hierarchical: bool = False, sub8x8: bool = False,
-                 data_partitioning: bool = False, device=None):
+                 data_partitioning: bool = False, wp_method: str = "dc",
+                 device=None):
         """``n_slices``: equal row-band slices per picture (must divide
-        mb_h); the decision scan runs them side by side.  ``device``: None
-        is the CUDA card (raises without one); pass "cpu" for the plain
-        PyTorch path on the host."""
-        unported = [
-            ("weighted prediction", p.weighted_pred),
-            ("a device mesh", mesh is not None),
-            ("data partitioning", data_partitioning)]
-        for what, asked in unported:
-            if asked:
-                raise NotImplementedError(f"{what} is not ported")
+        mb_h); the decision scan runs them side by side.
+        ``data_partitioning``: P slices as NAL 2/3/4 partitions (CAVLC
+        IPPP).  ``wp_method``: the explicit-WP estimator when
+        ``p.weighted_pred`` — "dc" (DC ratio) or "lms" (least-squares gain
+        and offset over host copies of the recent reconstructions).
+        ``device``: None is the CUDA card (raises without one); pass "cpu"
+        for the plain PyTorch path on the host."""
+        if mesh is not None:
+            raise NotImplementedError("a device mesh is not ported")
         # TPUAVCCodec's own limits
+        if wp_method not in ("dc", "lms"):
+            raise ValueError(f"wp_method {wp_method!r}")
         if sub8x8 and (p.cabac or bframes > 0):
             raise NotImplementedError("P8x8 sub-partitions are "
                                       "CAVLC-IPPP for now")
+        if data_partitioning and (p.cabac or bframes > 0):
+            raise NotImplementedError("data partitioning is CAVLC "
+                                      "P/I only (spec 7.4.1)")
         if p.scaling_matrix is not None:
             if p.scaling_matrix != "default":
                 raise NotImplementedError("only the spec default "
@@ -161,6 +178,9 @@ class DeviceAVCCodec:
         if p.transform_8x8 and bframes > 0:
             raise NotImplementedError("8x8 transform in the B driver "
                                       "is not wired yet")
+        if p.weighted_pred and (bframes > 0 or p.cabac):
+            raise NotImplementedError("device WP is CAVLC-IPPP "
+                                      "single-mesh for now")
         if p.slice_groups != 1:
             raise ValueError("the device path has no FMO")
         if p.mb_h % n_slices:
@@ -173,6 +193,8 @@ class DeviceAVCCodec:
         self.sub8x8 = sub8x8
         self.bframes = bframes
         self.hierarchical = hierarchical
+        self.data_partitioning = data_partitioning
+        self.wp_method = wp_method
         conformance.check_params(p)
         self._dummy = None
         # host milliseconds per frame of the slice packer and the deblock
@@ -207,11 +229,15 @@ class DeviceAVCCodec:
         return DE.prep_ref(*(torch.as_tensor(pl).to(self.device)
                              for pl in rec8), self.sr)
 
-    def encode_frame(self, yuv, refs, qp: int, force=None, n_refs=None):
+    def encode_frame(self, yuv, refs, qp, force=None, n_refs=None, wp=None):
         """Device encode of one frame against ``refs`` (a list of
         ``prep_ref`` entries, newest first; empty for an IDR), stacked to
-        ``n_refs`` entries (default ``num_ref_frames``).  Returns the
-        device (sym, rec, ctx) of ``device_enc.encode_frame``."""
+        ``n_refs`` entries (default ``num_ref_frames``).  ``qp``: the frame
+        QP, or one QP per slice.  ``wp``: the P frame's explicit-WP table
+        (``estimate_wp``'s dict, one ``l0`` entry per stacked reference):
+        each reference's luma planes are weighted here, its chroma weights
+        go to the decision scan.  Returns the device (sym, rec, ctx) of
+        ``device_enc.encode_frame``."""
         p = self.p
         y, u, v = self.planes(yuv)
         if force is None:
@@ -228,82 +254,136 @@ class DeviceAVCCodec:
         n_valid = min(len(refs), R)
         sel = [refs[min(i, n_valid - 1)] for i in range(R)]
         stacks = [torch.stack([r[k] for r in sel]) for k in range(3)]
-        return DE.encode_frame(y, u, v, *stacks, qp, n_valid, force,
+        wp_c = None
+        if wp is not None:
+            stacks[0] = torch.stack([DE.weight_luma(r[0], e[0], e[1])
+                                     for r, e in zip(sel, wp["l0"])])
+            wp_c = torch.as_tensor(np.array([e[2:6] for e in wp["l0"]],
+                                            np.int32)).to(self.device)
+        return DE.encode_frame(y, u, v, *stacks, qp, n_valid, force, wp_c,
                                intra_only=False, **kw)
 
     def encode_sequence(self, frames, qp: int = None, verbose: bool = False,
                         force_intra=None, rate_control=None):
         """frames: iterable of (Y, U, V) uint8.  Returns (results, Annex-B
-        stream bytes) like ``TPUAVCCodec.encode_sequence``."""
-        if rate_control is not None:
-            raise NotImplementedError("rate control is not ported")
+        stream bytes) like ``TPUAVCCodec.encode_sequence``.
+
+        ``rate_control``: a ``models.ratectl.QuadraticRateControl``; the
+        QP of every frame after the first comes from its quadratic R-Q
+        model instead of ``qp``.  With ``rc_mode=3`` and more than one
+        slice, each row-band slice is a basic unit: QP becomes one value
+        per slice (the frame target split by the previous frame's measured
+        per-unit MAD), each slice header carries its own slice_qp_delta,
+        and the frame QP is their rounded mean.  B sequences
+        (``bframes``) take no rate control, as in ``TPUAVCCodec``: the
+        controller is not consulted there."""
         p = self.p
         qp = p.qp if qp is None else qp
         if self.bframes > 0:
             return self._encode_sequence_b(frames, qp, verbose)
+        rc = rate_control
+        bu = (rc is not None and getattr(rc, "rc_mode", 1) == 3
+              and self.n_slices > 1)
+        if bu:
+            rc.basic_units = self.n_slices     # BU = one row-band slice
         R = max(p.num_ref_frames, 1)
         mb_h, mb_w = p.mb_h, p.mb_w
         rows = mb_h // self.n_slices
         slices, results, dpb = [], [], []
+        dpb_means, dpb_recs = [], []   # per-entry (dc_y, dc_u, dc_v); rec8s
         frame_num = idr_pic_id = 0
         pending = None
 
         def finalize(pend):
             t0 = time.perf_counter()
             sym = pend["sym"]
+            fqps = pend["qps"]
             if pend["idr"] and p.cabac:
                 rbsps = [PKC.pack_i_slice_cabac(
-                    sym, p, qp, frame_num=0, idr=True,
+                    sym, p, fqps[s], frame_num=0, idr=True,
                     idr_pic_id=pend["idr_pic_id"], row0=s * rows, n_rows=rows)
                     for s in range(self.n_slices)]
             elif pend["idr"]:
-                rbsps = [AN.pack_slice(sym, p, SLICE_I, qp, 0, True,
+                rbsps = [AN.pack_slice(sym, p, SLICE_I, fqps[s], 0, True,
                                        pend["idr_pic_id"], 1,
                                        row0=s * rows, n_rows=rows)
                          for s in range(self.n_slices)]
             elif p.cabac:
                 rbsps = [PKC.pack_p_slice_cabac(
-                    sym, p, qp, frame_num=pend["frame_num"],
+                    sym, p, fqps[s], frame_num=pend["frame_num"],
                     num_ref=pend["n_valid"], row0=s * rows, n_rows=rows)
                     for s in range(self.n_slices)]
-            elif self.sub8x8:
-                # the C packer has no sub_mb_type
-                rbsps = [PK.pack_p_slice(sym, p, qp,
-                                         frame_num=pend["frame_num"],
-                                         num_ref=pend["n_valid"],
-                                         row0=s * rows, n_rows=rows)
-                         for s in range(self.n_slices)]
+            elif self.data_partitioning or self.sub8x8:
+                # partitions A/B/C; the C packer has no sub_mb_type
+                rbsps = [PK.pack_p_slice(
+                    sym, p, fqps[s], frame_num=pend["frame_num"],
+                    num_ref=pend["n_valid"], row0=s * rows, n_rows=rows,
+                    wp=pend["wp"],
+                    dp_slice_id=s if self.data_partitioning else None)
+                    for s in range(self.n_slices)]
             else:
-                rbsps = [AN.pack_slice(sym, p, SLICE_P, qp,
+                rbsps = [AN.pack_slice(sym, p, SLICE_P, fqps[s],
                                        pend["frame_num"], False, 0,
-                                       pend["n_valid"],
-                                       row0=s * rows, n_rows=rows)
+                                       pend["n_valid"], row0=s * rows,
+                                       n_rows=rows, wp=pend["wp"])
                          for s in range(self.n_slices)]
             self.host_ms["pack"].append((time.perf_counter() - t0) * 1e3)
             slices.extend((pend["idr"], rb) for rb in rbsps)
-            res = AVCFrameResult(frame_type=pend["ftype"],
-                                 bits=sum(len(rb) for rb in rbsps) * 8,
-                                 psnr_y=pend["psnr_y"], recon=pend["rec8"])
+            res = AVCFrameResult(
+                frame_type=pend["ftype"],
+                bits=sum(len(x) for rb in rbsps
+                         for x in (rb if isinstance(rb, tuple) else (rb,))) * 8,
+                psnr_y=pend["psnr_y"], recon=pend["rec8"])
             results.append(res)
             if verbose:
                 print(f"frame {pend['idx']:3d} {pend['ftype']:3s} "
                       f"bits {res.bits:7d} PSNR-Y {res.psnr_y:6.2f}")
+            return res
+
+        def rc_update(pend):
+            """Pack ``pend`` and feed its bits to the controller."""
+            res = finalize(pend)
+            mse_y = 255.0 ** 2 / (10.0 ** (res.psnr_y / 10.0))
+            rc.update(res.bits, pend["qp"], float(np.sqrt(mse_y)),
+                      ftype="P" if pend["ftype"] == "P" else "I")
 
         for idx, yuv in enumerate(frames):
             idr = self._is_idr(idx)
-            meta = dict(idx=idx, idr=idr)
+            qp_s = None                      # per-slice QPs (basic-unit RC)
+            if rc is not None and idx > 0:
+                # rate control needs the previous frame's bits now
+                if pending is not None:
+                    rc_update(pending)
+                    if pending.get("bu_mads") is not None:
+                        rc.update_basic_units(pending["bu_mads"])
+                    pending = None
+                if bu and not idr:
+                    qp_s = [int(v) for v in rc.basic_unit_qps(self.n_slices)]
+                    qp = int(round(np.mean(qp_s)))
+                else:
+                    qp = rc.frame_qp("I" if idr else "P")
+            meta = dict(idx=idx, idr=idr, qp=qp,
+                        qps=qp_s if qp_s is not None else [qp] * self.n_slices)
+            wp = None
             if idr:
-                dpb = []
+                dpb, dpb_means, dpb_recs = [], [], []
                 meta.update(ftype="IDR", idr_pic_id=idr_pic_id)
                 idr_pic_id = (idr_pic_id + 1) & 0xFFFF
                 fim = None
             else:
-                meta.update(ftype="P", frame_num=frame_num,
-                            n_valid=min(len(dpb), R))
+                n_valid = min(len(dpb), R)
+                if p.weighted_pred:
+                    pad = [min(i, n_valid - 1) for i in range(R)]
+                    wp = (estimate_wp_lms(yuv, [dpb_recs[i] for i in pad])
+                          if self.wp_method == "lms" else
+                          estimate_wp(yuv, [dpb_means[i] for i in pad]))
+                meta.update(ftype="P", frame_num=frame_num, n_valid=n_valid,
+                            wp=wp)
                 fim = force_intra(idx) if force_intra else None
                 if fim is not None:
                     fim = torch.as_tensor(np.asarray(fim, bool)).to(self.device)
-            sym, rec, tctx = self.encode_frame(yuv, dpb, qp, fim)
+            sym, rec, tctx = self.encode_frame(
+                yuv, dpb, qp if qp_s is None else qp_s, fim, wp=wp)
             frame_num = 1 if idr else (frame_num + 1) % (1 << p.log2_max_frame_num)
 
             # pack the previous frame once this frame's work is queued
@@ -314,19 +394,36 @@ class DeviceAVCCodec:
             if p.deblock:
                 t0 = time.perf_counter()
                 ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
-                                      p.chroma_qp_offset, idr)
+                                      p.chroma_qp_offset, idr, qp_s)
                 rec_np = AN.deblock_frame(*rec_np, ctx)
                 self.host_ms["deblock"].append((time.perf_counter() - t0) * 1e3)
             rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
             dpb.insert(0, self.prep(rec8))
             dpb = dpb[:R]
+            if p.weighted_pred:
+                dpb_means.insert(0, tuple(float(pl.mean()) for pl in rec8))
+                dpb_means = dpb_means[:R]
+                if self.wp_method == "lms":
+                    dpb_recs.insert(0, rec8)
+                    dpb_recs = dpb_recs[:R]
             mse = ((np.asarray(yuv[0], np.float64) - rec8[0]) ** 2).mean()
             meta.update(sym=sym_np, rec8=rec8,
                         psnr_y=99.99 if mse == 0 else
                         float(10 * np.log10(255.0 ** 2 / mse)))
+            if bu and not idr:
+                # the measured per-unit MAD (reconstruction error) feeds the
+                # next frame's per-unit target split
+                d = np.abs(np.asarray(yuv[0], np.int64)
+                           - rec8[0].astype(np.int64))
+                meta["bu_mads"] = [float(d[s * rows * 16:(s + 1) * rows * 16]
+                                         .mean())
+                                   for s in range(self.n_slices)]
             pending = meta
         if pending is not None:
-            finalize(pending)
+            if rc is not None:
+                rc_update(pending)
+            else:
+                finalize(pending)
         return results, assemble_stream(p, slices)
 
     def _encode_sequence_b(self, frames, qp: int, verbose: bool = False):
@@ -339,7 +436,9 @@ class DeviceAVCCodec:
         anchor), then the two leaf Bs predicting from it; QP cascade
         anchor qp, reference B qp+1, leaf B qp+2.  Anchors predict from the
         previous anchor alone.  The stream is in decode order, the results
-        in display order."""
+        in display order.  Like ``TPUAVCCodec``'s B sequences it takes no
+        rate control: ``encode_sequence`` hands the call here before it
+        reads ``rate_control``, so a controller is never consulted."""
         p = self.p
         frames = list(frames)
         n = len(frames)

@@ -30,6 +30,14 @@ Floating point follows XLA's CPU backend, which contracts every ``x +
 lam*y`` of the RD costs into one fused multiply-add: :func:`_fma` rounds an
 exact float64 product-sum once to float32, on either device.  The lambda
 values are the JAX package's float32 bits, carried as a table.
+
+QP is one device tensor with a value per lane (MB row), expanded from a
+frame QP or from rate control's per-slice QPs (:func:`lane_qp`): the
+quantizers take their shifts and tables per lane, and the lambdas are
+gathered per lane, so each slice is priced and quantized at its own QP as
+the reference's per-band ``vmap`` does.  Explicit weighted prediction
+weights the chroma MC of P candidates per reference (``wp_c``); the luma
+weighting is applied to the reference planes by the caller.
 """
 
 from __future__ import annotations
@@ -134,13 +142,41 @@ def lambdas(qp: int):
             float(_LAM_ME_BITS[qp:qp + 1].view(np.float32)[0]))
 
 
-def _fma(lam: float, b, a) -> torch.Tensor:
+def lane_qp(qp, mb_h: int, n_slices: int, device) -> torch.Tensor:
+    """One QP per MB row as an int32 tensor [mb_h]: ``qp`` is a frame QP
+    (int) or a sequence of ``n_slices`` per-slice QPs (basic-unit rate
+    control), each spread over its slice's rows."""
+    if isinstance(qp, (int, np.integer)):
+        return torch.full((mb_h,), int(qp), dtype=torch.int32, device=device)
+    q = torch.as_tensor(np.asarray(qp, np.int32).reshape(n_slices))
+    return q.to(device).repeat_interleave(mb_h // n_slices)
+
+
+def lane_lambdas(qp_l: torch.Tensor):
+    """(lambda_mode, lambda_me) per lane of ``qp_l``: the float32 values of
+    :func:`lambdas` as float64 tensors, so that :func:`_fma` stays one
+    exact product-sum."""
+    dev = qp_l.device
+    idx = qp_l.long()
+    return tuple(device_const(name, bits.view(np.float32).astype(np.float64),
+                              dev)[idx]
+                 for name, bits in (("lam_f64", _LAM_BITS),
+                                    ("lam_me_f64", _LAM_ME_BITS)))
+
+
+def _fma(lam, b, a) -> torch.Tensor:
     """float32(a) + lam * float32(b) rounded once to float32.  The product
     of two float32 values is exact in float64, so one float64 add and one
-    narrowing give the fused result XLA's CPU backend computes."""
+    narrowing give the fused result XLA's CPU backend computes.  ``lam``:
+    a float, or a float64 tensor whose dims lead the result's (one value
+    per lane [L]; unit dims are appended)."""
     a = a.to(torch.float32).to(torch.float64)
+    nd = a.dim()
     if isinstance(b, torch.Tensor):
         b = b.to(torch.float32).to(torch.float64)
+        nd = max(nd, b.dim())
+    if isinstance(lam, torch.Tensor):
+        lam = lam.reshape(lam.shape + (1,) * (nd - lam.dim()))
     return (a + lam * b).to(torch.float32)
 
 
@@ -199,6 +235,15 @@ def prep_ref(rec_y, rec_u, rec_v, sr: int):
     return up, u, v
 
 
+def weight_luma(up, wy: int, oy: int):
+    """Explicit-WP view of one reference's phase-split quarter-pel planes
+    (``tpu_codec._weight_luma``): luma MC is a pure gather, so weighting
+    the planes is the spec 8.4.2.3.2 post-MC transform (d_l = 5); Stage A
+    searches the weighted integer samples too."""
+    return torch.clamp(((up.to(torch.int32) * wy + 16) >> 5) + oy,
+                       0, 255).to(torch.uint8)
+
+
 def dpb_from_numpy(up, u_pad, v_pad, device):
     """One reference entry of the JAX package's ``prep_ref`` (as numpy
     arrays) as the port's tensors on ``device``."""
@@ -227,7 +272,7 @@ def _slot_sads(cells: torch.Tensor, mb_h: int, mb_w: int,
                         for (cy, cx, ch, cw) in slots4], dim=-2)
 
 
-def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
+def _integer_search(org_y, ref_ys, sr: int, lam_me,
                     band_rows: int = None, sub8x8: bool = False,
                     only16: bool = False):
     """Integer-pel search for the partition slots of every MB: the 9 of
@@ -235,7 +280,9 @@ def _integer_search(org_y, ref_ys, sr: int, lam_me: float,
     (every slot's numbers do not depend on the other slots).
 
     org_y [H, W]; ref_ys [R, H+2P, W+2P] padded integer luma planes;
-    ``band_rows``: MB rows per slice (default: one slice).  Returns (mv_int
+    ``lam_me``: a float, or a float64 tensor [1, 1, 1, nmb] of one
+    lambda per MB; ``band_rows``: MB rows per slice (default: one slice).
+    Returns (mv_int
     [R, ns, nmb, 2] integer pel (x, y), sad_int [R, ns, nmb], pmv2 [R, ns,
     nmb, 2] quarter-pel pass-2 predictors).
 
@@ -339,13 +386,14 @@ _SUB_STEPS = {step: [(ddx, ddy) for ddy in (-step, 0, step)
               for step in (2, 1)}
 
 
-def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me: float,
+def _subpel_refine(org_y, ups, mv_int, pmv2, sr: int, lam_me,
                    sub8x8: bool = False, only16: bool = False):
     """Refine every (ref, slot, MB) to quarter-pel: the 8 half-pel then the
     8 quarter-pel neighbours of the best so far, by SATD + lambda_me * MVD
     bits; a candidate must be strictly better to win.
 
-    ups [R, 4, 4, H+2P, W+2P] uint8.  Returns (mv_q [R, ns, nmb, 2], dist_q
+    ups [R, 4, 4, H+2P, W+2P] uint8; ``lam_me`` a float or a float64
+    tensor [1, nmb, 1] of one lambda per MB.  Returns (mv_q [R, ns, nmb, 2], dist_q
     [R, ns, nmb]) over the slots of :func:`slot_geometry`."""
     dev = org_y.device
     H, W = org_y.shape
@@ -524,7 +572,7 @@ def _tabs(qm, key: str):
     return (None, None) if qm is None else (qm[key]["mf"], qm[key]["ils"])
 
 
-def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off, qm=None):
+def _eval_i16(patch, org16, lc, nbr, qp, lam, ar_off, qm=None):
     """Intra 16x16 RD over 4 modes.  patch [L, 17, 25] the reconstruction
     around the MB (row 0 / column 0 are the neighbours); ``nbr`` None
     estimates every block's bits at nC 0, as the B path does."""
@@ -567,7 +615,7 @@ def _eval_i16(patch, org16, lc, nbr, qp: int, lam: float, ar_off, qm=None):
                 rec=_take(rec, m), cost=_take(cost, m), fadj=fadj)
 
 
-def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off,
+def _eval_i4(patch, org16, lc, nbr, qp, lam, mb_w: int, ar_off,
              qm=None):
     """Intra 4x4 RD: the 16 blocks in coding order, each seeing the
     reconstruction of the ones before it."""
@@ -644,7 +692,7 @@ def _eval_i4(patch, org16, lc, nbr, qp: int, lam: float, mb_w: int, ar_off,
                 cost=_fma(lam, bits_tot, ssd_tot), fadj=fadj_tot)
 
 
-def _code_chroma(org2, pred2, qpc: int, intra: bool, qm=None):
+def _code_chroma(org2, pred2, qpc, intra: bool, qm=None):
     """Residual coding of both chroma blocks: org2/pred2 [..., 2, 8, 8] ->
     (dc_levels [..., 2, 4], ac_zzs [..., 2, 2, 2, 15], recs [..., 2, 8, 8],
     cbp_chroma [...])."""
@@ -673,7 +721,7 @@ def _code_chroma(org2, pred2, qpc: int, intra: bool, qm=None):
     return dc_lev, ac_zz, recs, cbp
 
 
-def _eval_chroma_intra(pu, pv, org2, lc, qpc: int, qm=None):
+def _eval_chroma_intra(pu, pv, org2, lc, qpc, qm=None):
     """Chroma intra: SAD mode pick over both components, then the residual.
     pu/pv [L, 9, 9] reconstruction around the MB; org2 [L, 2, 8, 8]."""
     pr, al = [], None
@@ -715,7 +763,7 @@ def _cbp_bits(nz_b8: torch.Tensor) -> torch.Tensor:
     return (nz_b8.to(torch.int32) * w).sum(-1, dtype=torch.int32)
 
 
-def _code_inter_luma(org16, pred16, qp: int, ar_off, qm=None):
+def _code_inter_luma(org16, pred16, qp, ar_off, qm=None):
     """Residual coding of [..., 16, 16] predictions -> (zz_coding [..., 16,
     16] in coding order, rec [..., 16, 16], cbp_luma bits [...], fadj [...,
     4, 4] adaptive-rounding adjustment sum)."""
@@ -735,7 +783,7 @@ def _code_inter_luma(org16, pred16, qp: int, ar_off, qm=None):
     return zz[..., sy, sx, :], rec, cbp, fadj
 
 
-def _code_inter_luma8(org16, pred16, qp: int, qm=None):
+def _code_inter_luma8(org16, pred16, qp, qm=None):
     """High-profile 8x8 luma residual coding of [..., 16, 16] predictions.
 
     Returns (zz_coding [..., 16, 16] — the four 8x8 blocks' coefficients as
@@ -785,7 +833,11 @@ def _mc_luma(fr, r, mv, y0, x0, bh: int, bw: int):
 
 def _mc_chroma(fr, r, mv, cy, cx, bh: int, bw: int):
     """[L, ..., 2, bh, bw] spec 8.4.2.2.2 bilinear chroma prediction (U,
-    V) from reference ``r [L, ...]``; mv [L, ..., 2] in luma quarter-pel."""
+    V) from reference ``r [L, ...]``; mv [L, ..., 2] in luma quarter-pel.
+    With explicit WP (``fr["wp_c"]`` [R, 4] = (wu, ou, wv, ov) per list-0
+    reference) each prediction is weighted by its reference's weights
+    after the interpolation, as the decoder does (spec 8.4.2.3.2, d = 5):
+    ``tpu_enc._encode_band``'s ``wpc``."""
     _, Hcf, Wc = fr["us"].shape
     PC, hc = fr["PC"], fr["band_h"] // 2
     mvx = mv[..., 0].to(torch.int32)
@@ -803,6 +855,11 @@ def _mc_chroma(fr, r, mv, cy, cx, bh: int, bw: int):
         C, D = win[..., 1:, :bw], win[..., 1:, 1:]
         out.append(((8 - fx) * (8 - fy) * A + fx * (8 - fy) * B
                     + (8 - fx) * fy * C + fx * fy * D + 32) >> 6)
+    if fr.get("wp_c") is not None:
+        wo = fr["wp_c"][r.long()][..., None, None, :]     # [L, ..., 1, 1, 4]
+        out = [torch.clamp(((pr * wo[..., 2 * ci] + 16) >> 5)
+                           + wo[..., 2 * ci + 1], 0, 255)
+               for ci, pr in enumerate(out)]
     return torch.stack(out, -3)
 
 
@@ -1316,25 +1373,31 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
 # The frame encoder
 # ===========================================================================
 
-def search(org_y, ref_ups, sr: int, qp: int, n_slices: int = 1,
+def search(org_y, ref_ups, sr: int, qp, n_slices: int = 1,
            sub8x8: bool = False, only16: bool = False):
     """Stages A and B for every MB of the frame: (mv_q [nmb, R, ns, 2]
-    quarter-pel, dist_q [nmb, R, ns] SATD) over :func:`slot_geometry`."""
-    mb_h = org_y.shape[0] // 16
-    _, lam_me = lambdas(qp)
+    quarter-pel, dist_q [nmb, R, ns] SATD) over :func:`slot_geometry`.
+    ``qp``: the frame QP or the per-slice QPs (:func:`lane_qp`); each MB's
+    motion costs are priced at its slice's lambda_me."""
+    mb_h, mb_w = org_y.shape[0] // 16, org_y.shape[1] // 16
+    qp_l = lane_qp(qp, mb_h, n_slices, org_y.device)
+    lam_me = lane_lambdas(qp_l)[1].repeat_interleave(mb_w)   # [nmb]
     ref_pads = ref_ups[:, 0, 0].to(torch.int32)          # integer samples
-    mv_int, _sad, pmv2 = _integer_search(org_y, ref_pads, sr, lam_me,
+    mv_int, _sad, pmv2 = _integer_search(org_y, ref_pads, sr,
+                                         lam_me.reshape(1, 1, 1, -1),
                                          band_rows=mb_h // n_slices,
                                          sub8x8=sub8x8, only16=only16)
-    mv_q, sad_q = _subpel_refine(org_y, ref_ups, mv_int, pmv2, sr, lam_me,
+    mv_q, sad_q = _subpel_refine(org_y, ref_ups, mv_int, pmv2, sr,
+                                 lam_me.reshape(1, -1, 1),
                                  sub8x8=sub8x8, only16=only16)
     return mv_q.permute(2, 0, 1, 3), sad_q.permute(2, 0, 1)
 
 
 def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
-                  sb_h: int):
+                  sb_h: int, wp_c=None):
     """Per-MB original blocks and the flat reference planes the decision
-    scan gathers from."""
+    scan gathers from, and the chroma WP weights ``wp_c`` [R, 4] (None: no
+    weighting)."""
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
     dev = org_y.device
@@ -1348,7 +1411,7 @@ def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
                 us=ref_us, us_flat=ref_us.reshape(-1),
                 vs_flat=ref_vs.reshape(-1),
                 P=luma_pad(sr), PC=chroma_pad(sr), band=lanes // sb_h,
-                band_h=sb_h * 16)
+                band_h=sb_h * 16, wp_c=wp_c)
 
 
 def _scan(step, T: int, dev, marks=None) -> list:
@@ -1383,19 +1446,34 @@ def _scan(step, T: int, dev, marks=None) -> list:
     return ys
 
 
+def _lane_cfg(qp, mb_h: int, sb_h: int, chroma_qp_offset: int, dev) -> dict:
+    """The per-lane QP tensors of a decision scan: qp, its chroma QP and
+    the two lambdas, each [mb_h]; made before the scan's steps (and so
+    before the CUDA-graph capture)."""
+    qp_l = lane_qp(qp, mb_h, mb_h // sb_h, dev)
+    qpc_tab = device_const(
+        f"chroma_qp{chroma_qp_offset}",
+        np.array([Q.chroma_qp(q, chroma_qp_offset) for q in range(52)],
+                 np.int32), dev)
+    lam, lam_me = lane_lambdas(qp_l)
+    return dict(qp=qp_l, qpc=qpc_tab[qp_l.long()], lam=lam, lam_me=lam_me)
+
+
 def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
-           qp: int, n_valid: int, force_intra, *, sr: int, sb_h: int,
+           qp, n_valid: int, force_intra, *, sr: int, sb_h: int,
            intra_only: bool, chroma_qp_offset: int = 0,
            transform8: bool = False, sub8x8: bool = False,
-           scaling_default: bool = False, marks=None):
+           scaling_default: bool = False, wp_c=None, marks=None):
     """The wavefront decision scan over every row-band slice at once.
 
     An MB depends on its left, top and top-right neighbours only, so the
     MBs with c == t - 2*r (band-local row r) are independent: step t
     evaluates one MB per MB row of the frame and commits the row-disjoint
     state updates; ``mb_w + 2*(sb_h - 1)`` steps.  Slices reset every
-    context, so each band keeps its own state.  Returns (sym dict of [nmb,
-    ...] tensors in raster order, band state dict).
+    context, so each band keeps its own state.  ``qp``: the frame QP or one
+    QP per slice, as one per-lane tensor through every step
+    (:func:`_lane_cfg`); ``wp_c``: the chroma WP weights.  Returns (sym
+    dict of [nmb, ...] tensors in raster order, band state dict).
 
     ``marks``: a list; on CUDA, two CUDA events are appended to it, recorded
     after the eager first step and after the graph capture, so that a
@@ -1406,19 +1484,17 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
     mb_h, mb_w = H // 16, W // 16
     S = mb_h // sb_h
     sh4, w4 = sb_h * 4, mb_w * 4
-    lam, lam_me = lambdas(qp)
     qm = None
     if scaling_default:
         # the spec default matrices' weighted LevelScale / InvLevelScale
         qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
                   for m, t in tabs.items()}
               for k, tabs in QM.enc_tables_default().items()}
-    cfg = dict(qp=qp, qpc=Q.chroma_qp(qp, chroma_qp_offset), lam=lam,
-               lam_me=lam_me, n_valid=n_valid, mb_w=mb_w,
-               intra_only=intra_only, transform8=transform8, sub8x8=sub8x8,
-               qm=qm)
+    cfg = dict(_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev),
+               n_valid=n_valid, mb_w=mb_w, intra_only=intra_only,
+               transform8=transform8, sub8x8=sub8x8, qm=qm)
     fr = _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr,
-                       sb_h)
+                       sb_h, wp_c)
 
     def full(shape, v):
         return torch.full(shape, v, dtype=torch.int32, device=dev)
@@ -1481,18 +1557,23 @@ def assemble(sym, st, mb_h: int, mb_w: int):
     return rec, ctx
 
 
-def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp: int,
-                 n_valid: int, force_intra, *, mb_h: int, mb_w: int, sr: int,
-                 intra_only: bool, chroma_qp_offset: int = 0,
-                 n_slices: int = 1, transform8: bool = False,
-                 sub8x8: bool = False, scaling_default: bool = False):
+def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
+                 n_valid: int, force_intra, wp_c=None, *, mb_h: int,
+                 mb_w: int, sr: int, intra_only: bool,
+                 chroma_qp_offset: int = 0, n_slices: int = 1,
+                 transform8: bool = False, sub8x8: bool = False,
+                 scaling_default: bool = False):
     """Encode one frame's decisions and residuals on the tensors' device.
 
     org_*: int planes.  ref_ups [R, 4, 4, H+2P, W+2P] uint8 phase-split
     quarter-pel planes of list 0 (most recent first; slots past ``n_valid``
     repeat the last); ref_us/ref_vs [R, H/2+2PC, W/2+2PC] padded chroma;
-    force_intra [mb_h, mb_w] bool.  ``n_slices`` equal row-band slices
-    (must divide mb_h).  High profile: ``transform8`` (per-MB 8x8
+    force_intra [mb_h, mb_w] bool.  ``qp``: the frame QP (int) or
+    ``n_slices`` per-slice QPs (basic-unit rate control; each slice header
+    carries its own).  ``wp_c`` [R, 4] int32: explicit-WP chroma weights
+    (wu, ou, wv, ov) per reference, applied after chroma MC (the luma
+    weights are already in ``ref_ups``); None without WP.  ``n_slices``
+    equal row-band slices (must divide mb_h).  High profile: ``transform8`` (per-MB 8x8
     transform), ``sub8x8`` (P_8x8 sub-partitions), ``scaling_default`` (the
     spec default scaling lists).  Returns (symbols dict of [nmb, ...] int32
     tensors in raster order — with ``t8`` / ``sub`` and ``mvd_s`` when
@@ -1515,7 +1596,7 @@ def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp: int,
                      sad_q, qp, n_valid, force_intra, sr=sr, sb_h=sb_h,
                      intra_only=intra_only, chroma_qp_offset=chroma_qp_offset,
                      transform8=transform8, sub8x8=sub8x8,
-                     scaling_default=scaling_default)
+                     scaling_default=scaling_default, wp_c=wp_c)
     rec, ctx = assemble(sym, st, mb_h, mb_w)
     return sym, rec, ctx
 
@@ -1607,7 +1688,7 @@ def _quad_mc(fr, r, qmv, lc):
                 L, 2, 8, 8))
 
 
-def _b_side(f, lc, fr, mv_mb, sad_mb, nv: int, lam_me: float):
+def _b_side(f, lc, fr, mv_mb, sad_mb, nv: int, lam_me):
     """One list's 16x16 candidate: the reference of least SAD + lambda_me *
     (ref + MVD bits) among the ``nv`` valid ones, its MVD, bits and
     prediction.  mv_mb [L, R, 2], sad_mb [L, R]."""
@@ -1764,7 +1845,7 @@ def _mb_compute_b(st, lc, fr0, fr1, mv0_mb, sad0_mb, mv1_mb, sad1_mb, col,
 
 
 def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
-             col_mv, col_ref, qp: int, nv0: int, nv1: int, *, sr: int,
+             col_mv, col_ref, qp, nv0: int, nv1: int, *, sr: int,
              sb_h: int, chroma_qp_offset: int = 0, marks=None):
     """The B frame's wavefront decision scan over every row-band slice at
     once, stepped like :func:`decide` (one step eager, the others replayed
@@ -1773,16 +1854,17 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
     r0/r1: (ups, us, vs) reference stacks of lists 0 and 1; mv*_q [nmb, R,
     2] / sad*_q [nmb, R] the 16x16 search results of each list; col_mv
     [mb_h*4, mb_w*4, 2] / col_ref [mb_h*4, mb_w*4] the first list-1
-    reference's motion.  Returns (sym dict of [nmb, ...] tensors in raster
-    order, band state dict)."""
+    reference's motion.  ``qp`` is the frame's (B sequences take no
+    rate control), in the same per-lane form as :func:`decide`'s.
+    Returns (sym dict of [nmb, ...] tensors in raster order, band state
+    dict)."""
     dev = org_y.device
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
     S = mb_h // sb_h
     sh4, w4 = sb_h * 4, mb_w * 4
-    lam, lam_me = lambdas(qp)
-    cfg = dict(qp=qp, qpc=Q.chroma_qp(qp, chroma_qp_offset), lam=lam,
-               lam_me=lam_me, nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
+    cfg = dict(_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev),
+               nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
     fr0 = _frame_inputs(org_y, org_u, org_v, *r0, sr, sb_h)
     fr1 = _frame_inputs(org_y, org_u, org_v, *r1, sr, sb_h)
     col = dict(mv=col_mv.to(torch.int32).reshape(S, sh4, w4, 2),
@@ -1836,7 +1918,7 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
 
 
 def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
-                   r1_vs, col_mv, col_ref, qp: int, nv0: int, nv1: int, *,
+                   r1_vs, col_mv, col_ref, qp, nv0: int, nv1: int, *,
                    mb_h: int, mb_w: int, sr: int, chroma_qp_offset: int = 0,
                    n_slices: int = 1):
     """Encode one B frame's decisions and residuals on the tensors' device

@@ -113,16 +113,18 @@ def _tables_buffer():
 
 def pack_slice(sym, p: AVCParams, slice_type: int, qp: int, frame_num: int,
                idr: bool, idr_pic_id: int, num_ref: int,
-               row0: int = 0, n_rows: int = None) -> bytes:
+               row0: int = 0, n_rows: int = None, wp=None) -> bytes:
     """Native twin of ``pack.pack_i_slice`` / ``pack_p_slice``
-    (byte-identical) for MB rows [row0, row0 + n_rows)."""
+    (byte-identical) for MB rows [row0, row0 + n_rows); ``wp`` is the
+    explicit-WP table of a P slice's header."""
     lib = _load()
     mb_h, mb_w = p.mb_h, p.mb_w
     n_rows = mb_h - row0 if n_rows is None else n_rows
     hw = BitWriter()
     write_slice_header(hw, p, slice_type, frame_num, idr, qp,
                        idr_pic_id=idr_pic_id, first_mb=row0 * mb_w,
-                       num_ref_idx_l0=num_ref if slice_type == SLICE_P else 1)
+                       num_ref_idx_l0=num_ref if slice_type == SLICE_P else 1,
+                       wp=wp)
     hdr = np.frombuffer(hw.to_bytes(), np.uint8)
     hdr_bits = hw.bit_length()
     arrs = [_i32(sym[k]) for k in

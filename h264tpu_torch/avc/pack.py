@@ -108,9 +108,11 @@ def _write_chroma_residual(w, cdc, cac, cbp_chroma, nnz_c, mby, mbx,
 
 def _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i, use_i16: bool,
                          in_p: bool, top_row=0, base=None,
-                         transform_8x8: bool = False):
+                         transform_8x8: bool = False, w_res=None):
     """mb_type .. residual for one intra MB (shared I/P/B logic);
-    ``base`` = intra mb_type offset (0 in I, 5 in P, 23 in B)."""
+    ``base`` = intra mb_type offset (0 in I, 5 in P, 23 in B);
+    ``w_res``: separate writer for the residual (data partitioning
+    category-3 split, partition B) — defaults to ``w``."""
     cbp_luma = int(sym["cbp_luma"][i])
     cbp_chroma = int(sym["cbp_chroma"][i])
     if base is None:
@@ -136,10 +138,11 @@ def _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i, use_i16: bool,
     else:
         w.se(0)
     zz = np.asarray(sym["zz"][i])
-    _write_luma_residual(w, zz, cbp_luma, nnz_y, mby, mbx, use_i16,
+    wr = w if w_res is None else w_res
+    _write_luma_residual(wr, zz, cbp_luma, nnz_y, mby, mbx, use_i16,
                          i16dc=np.asarray(sym["i16dc"][i]),
                          top_by=top_row * 4)
-    _write_chroma_residual(w, np.asarray(sym["cdc"][i]),
+    _write_chroma_residual(wr, np.asarray(sym["cdc"][i]),
                            np.asarray(sym["cac"][i]), cbp_chroma,
                            nnz_c, mby, mbx, top_by=top_row * 2)
 
@@ -167,12 +170,16 @@ def pack_i_slice(sym, p: AVCParams, qp: int, frame_num: int = 0,
 
 def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
                  num_ref: int, row0: int = 0, n_rows: int = None,
-                 poc_lsb: int = 0, mmco=None, reorder_l0=None) -> bytes:
+                 poc_lsb: int = 0, mmco=None, reorder_l0=None,
+                 wp=None, dp_slice_id=None):
     """Pack a P frame's symbols into one P slice RBSP covering MB rows
-    [row0, row0 + n_rows).  ``poc_lsb``, ``mmco`` and ``reorder_l0`` go
-    to the slice header (the anchors of a hierarchical B GOP)."""
-    if p.cabac:
-        raise NotImplementedError("CABAC is not ported")
+    [row0, row0 + n_rows).  ``poc_lsb``, ``mmco``, ``reorder_l0`` and the
+    explicit-WP table ``wp`` go to the slice header.
+
+    ``dp_slice_id``: when not None, emit with data partitioning (spec
+    7.4.1): returns (rbsp_a, rbsp_b, rbsp_c) — A carries the slice
+    header + slice_id + category-2 syntax, B the intra residual, C the
+    inter residual, each of B/C prefixed by the same slice_id."""
     mb_h, mb_w = p.mb_h, p.mb_w
     n_rows = mb_h - row0 if n_rows is None else n_rows
     nnz_y, nnz_c = _nnz_planes(sym, mb_h, mb_w)
@@ -182,7 +189,17 @@ def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
     w = BitWriter()
     write_slice_header(w, p, SLICE_P, frame_num, False, qp,
                        num_ref_idx_l0=num_ref, first_mb=row0 * mb_w,
-                       poc_lsb=poc_lsb, mmco=mmco, reorder_l0=reorder_l0)
+                       poc_lsb=poc_lsb, mmco=mmco, reorder_l0=reorder_l0,
+                       wp=wp)
+    if dp_slice_id is None:
+        w_b = w_c = w
+    else:
+        if p.cabac:
+            raise ValueError("data partitioning requires CAVLC")
+        w.ue(dp_slice_id)
+        w_b, w_c = BitWriter(), BitWriter()
+        w_b.ue(dp_slice_id)
+        w_c.ue(dp_slice_id)
     skip_run = 0
     for i in range(row0 * mb_w, (row0 + n_rows) * mb_w):
         mby, mbx = i // mb_w, i % mb_w
@@ -195,7 +212,8 @@ def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
         if wc in (WIN_I4, WIN_I16):
             _write_intra_payload(w, sym, nnz_y, nnz_c, mby, mbx, i,
                                  use_i16=wc == WIN_I16, in_p=True,
-                                 top_row=row0, transform_8x8=p.transform_8x8)
+                                 top_row=row0, transform_8x8=p.transform_8x8,
+                                 w_res=w_b)
             continue
         mb_type = {WIN_16x16: 0, WIN_16x8: 1, WIN_8x16: 2, WIN_P8x8: 3,
                    WIN_P8SUB: 3}[wc]
@@ -246,15 +264,19 @@ def pack_p_slice(sym, p: AVCParams, qp: int, frame_num: int,
                 # NoSubMbPartSizeLessThan8x8Flag)
                 w.u(int(sym["t8"][i]) if "t8" in sym else 0, 1)
             w.se(0)
-            _write_luma_residual(w, np.asarray(sym["zz"][i]), cbp_luma,
+            _write_luma_residual(w_c, np.asarray(sym["zz"][i]), cbp_luma,
                                  nnz_y, mby, mbx, False, top_by=row0 * 4)
-            _write_chroma_residual(w, np.asarray(sym["cdc"][i]),
+            _write_chroma_residual(w_c, np.asarray(sym["cdc"][i]),
                                    np.asarray(sym["cac"][i]), cbp_chroma,
                                    nnz_c, mby, mbx, top_by=row0 * 2)
     if skip_run > 0:
         w.ue(skip_run)
     w.u(1, 1)
-    return w.to_bytes()
+    if dp_slice_id is None:
+        return w.to_bytes()
+    w_b.u(1, 1)
+    w_c.u(1, 1)
+    return w.to_bytes(), w_b.to_bytes(), w_c.to_bytes()
 
 
 # win codes for B slices (device_enc.decide_b)

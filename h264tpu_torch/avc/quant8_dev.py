@@ -8,7 +8,8 @@ LevelScale8x8 tables (``avc/tables8.py``), and the decoder's ``(x + 32) >> 6``
 reconstruction rounding.  Every product and shift stays in int32, as in the
 JAX package (``>>`` of a negative int32 is arithmetic in both).  ``mf``/``ils``
 are weighted [6, 8, 8] int32 tables of a scaling matrix on the blocks'
-device; None means the flat tables.  QP is a Python int.
+device; None means the flat tables.  ``qp`` is a Python int or a lane
+tensor [L], as in ``quant_dev``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import device_const
+from .quant_dev import _per_rem
 from .quant8 import Q_BITS_8, OFFSET8_INTRA, OFFSET8_INTER, ZIGZAG8_FLAT
 from .tables8 import QUANT_COEF8, DEQUANT_COEF8
 
@@ -74,13 +76,12 @@ def quant8x8(w: torch.Tensor, qp: int, intra: bool,
     """quant_8x8_normal: level = (|w|*MF8 + off<<(qbits-11)) >> qbits with
     qbits = 16 + qp//6.  ``offsets``: Q11 rounding offsets broadcastable to
     ``w``; None = 682/342."""
-    per, rem = qp // 6, qp % 6
+    per, rem = _per_rem(qp, w, 2)
     if offsets is None:
         off = (OFFSET8_INTRA if intra else OFFSET8_INTER) << (5 + per)
     else:
         off = offsets.to(torch.int32) << (5 + per)
-    m = device_const(f"mf8_{rem}", _MF8[rem], w.device) if mf is None \
-        else mf[rem]
+    m = (device_const("mf8", _MF8, w.device) if mf is None else mf)[rem]
     lev = (torch.abs(w) * m + off) >> (Q_BITS_8 + per)
     return torch.sign(w) * lev
 
@@ -89,9 +90,8 @@ def dequant8x8(lev: torch.Tensor, qp: int,
                ils: torch.Tensor = None) -> torch.Tensor:
     """rshift_rnd_sf((level * (V8 << 4)) << per, 6); weighted ``ils`` =
     dequant_coef8 * qmatrix (== V8 << 4 at qmatrix 16)."""
-    per, rem = qp // 6, qp % 6
-    v8 = device_const(f"v8_{rem}", _V16[rem], lev.device) if ils is None \
-        else ils[rem]
+    per, rem = _per_rem(qp, lev, 2)
+    v8 = (device_const("v8", _V16, lev.device) if ils is None else ils)[rem]
     return (((lev * v8) << per) + 32) >> 6
 
 

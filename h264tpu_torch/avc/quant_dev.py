@@ -1,8 +1,10 @@
 """JM-18.5-exact forward/inverse transform and quantization on tensors.
 
 Port of ``h264tpu/avc/quant_jax.py`` (the device twin of the host model
-``avc/quant.py``), batched over ``[..., 4, 4]`` int32 blocks.  QP is a Python
-int (the port has no rate control).  The conformant path uses the JM 18.5
+``avc/quant.py``), batched over ``[..., 4, 4]`` int32 blocks.  ``qp`` is a
+Python int, or an int32 tensor [L] of one QP per lane over the leading axis of
+the blocks (rate control's per-slice QP): the shifts broadcast and the
+tables are gathered per lane (:func:`_lanes`).  The conformant path uses the JM 18.5
 rounding offsets 682/342 in Q11 and the CAVLC level clamp; ``offsets`` carries
 the JVT-N011 adaptive-rounding state instead, broadcast against the blocks.
 ``mf``/``ils`` carry the High-profile weighted LevelScale / InvLevelScale
@@ -28,8 +30,28 @@ AR_WEIGHT = 8          # JM AdaptRndWeight default
 AR_RANGE = 1024        # 1 << (OffsetBits - 1)
 
 
-def _mf(rem: int, device) -> torch.Tensor:
-    return device_const(f"mf{rem}", QUANT_COEF[rem], device)
+def _lanes(qp, nd: int):
+    """``qp`` shaped to broadcast over ``nd`` dims: an int stays an int, a
+    lane tensor [L] gains ``nd - 1`` trailing unit dims."""
+    if isinstance(qp, torch.Tensor):
+        return qp.reshape(qp.shape + (1,) * (nd - qp.dim()))
+    return qp
+
+
+def _per_rem(qp, x: torch.Tensor, block: int):
+    """(qp // 6 broadcasting against ``x``, qp % 6 broadcasting against the
+    leading dims of ``x`` without its ``block`` trailing block dims) — the
+    remainder indexes a [6, ...] table so that its rows line up with
+    ``x``."""
+    return _lanes(qp, x.dim()) // 6, _lanes(qp, x.dim() - block) % 6
+
+
+def _quant_coef(device) -> torch.Tensor:
+    return device_const("quant_coef", QUANT_COEF, device)
+
+
+def _dequant_coef(device) -> torch.Tensor:
+    return device_const("dequant_coef", DEQUANT_COEF, device)
 
 
 def quant4x4(w: torch.Tensor, qp: int, intra: bool,
@@ -37,12 +59,12 @@ def quant4x4(w: torch.Tensor, qp: int, intra: bool,
              mf: torch.Tensor = None) -> torch.Tensor:
     """Signed levels of [..., 4, 4] coefficients.  ``offsets``: Q11 rounding
     offsets broadcastable to ``w`` (adaptive rounding); None = 682/342."""
-    per, rem = qp // 6, qp % 6
+    per, rem = _per_rem(qp, w, 2)
     if offsets is None:
         off = (OFFSET_INTRA if intra else OFFSET_INTER) << (4 + per)
     else:
         off = offsets.to(torch.int32) << (4 + per)
-    m = _mf(rem, w.device) if mf is None else mf[rem]
+    m = (_quant_coef(w.device) if mf is None else mf)[rem]
     lev = (torch.abs(w) * m + off) >> (Q_BITS + per)
     lev = torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
     return torch.sign(w) * lev
@@ -53,10 +75,10 @@ def ar_fadjust(w: torch.Tensor, lev: torch.Tensor, qp: int,
     """JVT-N011 per-position rounding adjustment (quant4x4_around.c:96):
     ``(W * (scaled - (|level| << q_bits)) + (1 << q_bits)) >> (q_bits + 1)``
     where the coefficient quantized to a nonzero level, else 0."""
-    per, rem = qp // 6, qp % 6
+    per, rem = _per_rem(qp, w, 2)
     qbits = Q_BITS + per
     la = torch.abs(lev)
-    scaled = torch.abs(w) * (_mf(rem, w.device) if mf is None else mf[rem])
+    scaled = torch.abs(w) * (_quant_coef(w.device) if mf is None else mf)[rem]
     adj = (AR_WEIGHT * (scaled - (la << qbits)) + (1 << qbits)) >> (qbits + 1)
     return torch.where((w != 0) & (la != 0), adj, 0)
 
@@ -65,10 +87,9 @@ def dequant4x4(lev: torch.Tensor, qp: int,
                ils: torch.Tensor = None) -> torch.Tensor:
     """Flat: (lev * V) << per.  Weighted (``ils`` = dequant_coef *
     qmatrix): ((lev * ILS) << per + 8) >> 4, the same at qmatrix 16."""
-    per, rem = qp // 6, qp % 6
+    per, rem = _per_rem(qp, lev, 2)
     if ils is None:
-        v = device_const(f"v{rem}", DEQUANT_COEF[rem], lev.device)
-        return (lev * v) << per
+        return (lev * _dequant_coef(lev.device)[rem]) << per
     return (((lev * ils[rem]) << per) + 8) >> 4
 
 
@@ -102,8 +123,8 @@ def hadamard4x4_fwd(dc: torch.Tensor) -> torch.Tensor:
 
 def quant_dc16(h: torch.Tensor, qp: int,
                mf4: torch.Tensor = None) -> torch.Tensor:
-    per, rem = qp // 6, qp % 6
-    mf = int(QUANT_COEF[rem, 0, 0]) if mf4 is None else mf4[rem, 0, 0]
+    per, rem = _per_rem(qp, h, 0)
+    mf = (_quant_coef(h.device) if mf4 is None else mf4)[rem, 0, 0]
     off = OFFSET_INTRA << (4 + per)
     lev = (torch.abs(h) * mf + (off << 1)) >> (Q_BITS + per + 1)
     return torch.sign(h) * torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
@@ -111,8 +132,9 @@ def quant_dc16(h: torch.Tensor, qp: int,
 
 def dequant_dc16(lev: torch.Tensor, qp: int,
                  ils: torch.Tensor = None) -> torch.Tensor:
-    per, rem = qp // 6, qp % 6
-    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16 if ils is None else ils[rem, 0, 0]
+    per, rem = _per_rem(qp, lev, 0)
+    v16 = _dequant_coef(lev.device)[rem, 0, 0] * 16 if ils is None \
+        else ils[rem, 0, 0]
     return (((_h4(lev) * v16) << per) + 32) >> 6
 
 
@@ -126,8 +148,8 @@ def hadamard2x2_fwd(dc: torch.Tensor) -> torch.Tensor:
 
 def quant_dc_chroma(h: torch.Tensor, qpc: int, intra: bool,
                     mf4: torch.Tensor = None) -> torch.Tensor:
-    per, rem = qpc // 6, qpc % 6
-    mf = int(QUANT_COEF[rem, 0, 0]) if mf4 is None else mf4[rem, 0, 0]
+    per, rem = _per_rem(qpc, h, 0)
+    mf = (_quant_coef(h.device) if mf4 is None else mf4)[rem, 0, 0]
     off = (OFFSET_INTRA if intra else OFFSET_INTER) << (4 + per)
     lev = (torch.abs(h) * mf + (off << 1)) >> (Q_BITS + per + 1)
     return torch.sign(h) * torch.clamp(lev, max=CAVLC_LEVEL_LIMIT)
@@ -136,10 +158,11 @@ def quant_dc_chroma(h: torch.Tensor, qpc: int, intra: bool,
 def dequant_dc_chroma(lev: torch.Tensor, qpc: int,
                       ils: torch.Tensor = None) -> torch.Tensor:
     """[..., 4] levels -> [..., 2, 2] dequantized DC."""
-    per, rem = qpc // 6, qpc % 6
+    per, rem = _per_rem(qpc, lev, 0)
     l0, l1, l2, l3 = lev.to(torch.int32).unbind(-1)
     t = torch.stack([l0 + l1 + l2 + l3, l0 - l1 + l2 - l3,
                      l0 + l1 - l2 - l3, l0 - l1 - l2 + l3], dim=-1)
-    v16 = int(DEQUANT_COEF[rem, 0, 0]) * 16 if ils is None else ils[rem, 0, 0]
+    v16 = _dequant_coef(lev.device)[rem, 0, 0] * 16 if ils is None \
+        else ils[rem, 0, 0]
     return (((t * v16) << per) >> 5).reshape(*lev.shape[:-1], 2, 2)
 

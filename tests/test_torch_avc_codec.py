@@ -186,15 +186,19 @@ def test_no_device_without_a_card_raises():
         DeviceAVCCodec(AVCParams(width=32, height=32))
 
 
-# options that raise in both packages (the last two are TPUAVCCodec's own
-# limits, which the port keeps)
+# options that raise in both packages: TPUAVCCodec's own limits, which the
+# port keeps, and the device mesh, which is not ported
 UNPORTED = {
     "b_frames_transform8": (dict(profile_idc=100, transform_8x8=True,
                                  poc_type=0), dict(bframes=1)),
     "sub8x8_cabac": (dict(cabac=True, profile_idc=77), dict(sub8x8=True)),
-    "weighted_pred": (dict(weighted_pred=True, profile_idc=77), {}),
+    "weighted_pred_cabac": (dict(weighted_pred=True, cabac=True,
+                                 profile_idc=77), {}),
+    "weighted_pred_bframes": (dict(weighted_pred=True, profile_idc=77,
+                                   poc_type=0), dict(bframes=1)),
     "mesh": ({}, dict(mesh=object())),
-    "data_partitioning": ({}, dict(data_partitioning=True)),
+    "data_partitioning_cabac": (dict(cabac=True, profile_idc=77),
+                                dict(data_partitioning=True)),
 }
 
 
@@ -214,17 +218,11 @@ def _intra8x8_stream():
     return assemble_stream(p, [(True, w.to_bytes())])
 
 
-@pytest.mark.parametrize("name", list(UNPORTED)
-                         + ["rate_control", "decoder_intra8x8"])
+@pytest.mark.parametrize("name", list(UNPORTED) + ["decoder_intra8x8"])
 def test_unported_option_raises(name):
     if name == "decoder_intra8x8":
         with pytest.raises(NotImplementedError, match="Intra 8x8"):
             AVCDecoder().decode(_intra8x8_stream())
-        return
-    if name == "rate_control":
-        codec = DeviceAVCCodec(AVCParams(width=32, height=32), device="cpu")
-        with pytest.raises(NotImplementedError):
-            codec.encode_sequence([], rate_control=object())
         return
     params, kwargs = UNPORTED[name]
     with pytest.raises(NotImplementedError):

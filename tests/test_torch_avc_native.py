@@ -104,6 +104,25 @@ def test_native_pack_equals_numpy_and_jax(encoded, frame, slice_idx):
     assert JN.pack_slice(sym, _jax_params(p), *args, **row) == got
 
 
+@pytest.mark.parametrize("slice_idx", range(SLICES))
+def test_native_pack_with_wp_equals_numpy_and_jax(encoded, slice_idx):
+    """A P slice under explicit WP: the header's pred_weight_table (two
+    references, luma and chroma weights and offsets, negative ones too)."""
+    p = dataclasses.replace(encoded["p"], weighted_pred=True)
+    rows = p.mb_h // SLICES
+    sym = encoded["frames"][1]["sym"]
+    wp = dict(d_l=5, d_c=5, l0=[(37, -4, 30, 3, 34, -2),
+                                (-6, 11, 33, -1, 31, 2)])
+    row = dict(row0=slice_idx * rows, n_rows=rows, wp=wp)
+    want = PK.pack_p_slice(sym, p, QP, frame_num=1, num_ref=2, **row)
+    got = AN.pack_slice(sym, p, SLICE_P, QP, 1, False, 0, 2, **row)
+    assert got == want
+    assert JN.pack_slice(sym, _jax_params(p), SLICE_P, QP, 1, False, 0, 2,
+                         **row) == got
+    assert got != AN.pack_slice(sym, encoded["p"], SLICE_P, QP, 1, False, 0,
+                                2, row0=row["row0"], n_rows=rows)
+
+
 def test_symbols_exercise_every_path(encoded):
     """The P frame holds skip, inter and intra MBs; the 8x8 configuration
     chooses the 8x8 transform somewhere."""

@@ -202,3 +202,52 @@ def test_avc_hierb_cabac_card_stream_equals_cpu_stream():
     for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
+
+
+def _fade_frames(n, H, W, seed=0):
+    """Blocky frames whose luma rises by 6 a frame (an additive fade)."""
+    return [(np.clip(y.astype(np.int64) + 6 * i, 0, 255).astype(np.uint8), u,
+             v) for i, (y, u, v) in enumerate(_blocky_frames(n, H, W, seed))]
+
+
+def _option_codec(name, device):
+    """The QCIF codecs of chip_smoke.py's card-vs-CPU phase of the IPPP
+    options: explicit WP (LMS), basic-unit rate control, data
+    partitioning; 3 slices."""
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.params import AVCParams
+    fields = dict(wp_lms=dict(profile_idc=77, weighted_pred=True,
+                              num_ref_frames=2),
+                  rc_mode3=dict(), dp=dict(profile_idc=88))[name]
+    p = AVCParams(width=176, height=144, qp=28, **fields)
+    return DeviceAVCCodec(p, search_range=8, n_slices=3,
+                          wp_method="lms", data_partitioning=name == "dp",
+                          device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["wp_lms", "rc_mode3", "dp"])
+def test_avc_option_card_stream_equals_cpu_stream(name):
+    """The QCIF streams of the IPPP options from the card equal the CPU's,
+    which the CPU tests hold against the JAX package, and decode to the
+    encoder's reconstruction; rate control runs one controller per
+    device."""
+    _need_card()
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    from h264tpu_torch.models.ratectl import QuadraticRateControl
+    frames = (_fade_frames if name == "wp_lms" else _blocky_frames)(
+        4, 144, 176)
+    if name == "rc_mode3":
+        for y, _, _ in frames:
+            y[:48] = 128                   # a flat top slice
+    out = {}
+    for dev in ("cpu", "cuda"):
+        rc = QuadraticRateControl(300_000.0, 30.0, 28, rc_mode=3) \
+            if name == "rc_mode3" else None
+        out[dev] = _option_codec(name, dev).encode_sequence(
+            frames, rate_control=rc)
+    res, s_gpu = out["cuda"]
+    assert s_gpu == out["cpu"][1]
+    for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
+        for a, b in zip(r.recon, planes):
+            np.testing.assert_array_equal(a, b)

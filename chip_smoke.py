@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero before the result line:
    shared-memory report printed);
 2. every kernel against its plain PyTorch version on the card (exact int32
    equality) at the shapes of the main path (CIF luma and chroma, 1080p
-   luma) and of the search's other options (search modes 1-3, SR 16, one
-   reference plane, ragged tiles); each case reports the kernel's device
+   luma, CIF luma and chroma with the 3-view side views' eight reference
+   planes) and
+   of the search's other options (search modes 1-3, SR 16, one reference
+   plane, ragged tiles); each case reports the kernel's device
    time per launch (torch.profiler kernel events) and, apart from it, the
    wrapper's call time (CUDA events around back-to-back calls);
 3. the fractal main path at full size: ``FractalCodec.encode_sequence`` of
@@ -82,7 +84,33 @@ Phases, in order; any failure exits non-zero before the result line:
    peak device memory;
 15. the native host stages (``csrc/avc_native.cpp``, built with g++ in
    phase 1) against their numpy twins on frames of phases 5 and 6: equal
-   planes and bytes, with both times.
+   planes and bytes, with both times;
+16. the fractal codec's classic H.264-style inter at phase 3's CIF
+   configuration (ME search range 16): 1 I + 4 P decoded bit-exactly, the
+   P-frame interval and one P frame's device ms for the full search,
+   sub-pel refinement, MC + residual and deblock;
+17. fractal rate control at CIF, 1 I + 5 P, the budget the fixed-QP-24
+   rate of the same frames: QPs, P bits against the budget, bit-exact
+   decode;
+18. the Annex-B and RTP containers at CIF, 1 I + 3 P each, decoded
+   bit-exactly; RTP with frame 2's packet dropped, which the decoder
+   conceals by a copy of frame 1;
+19. CABAC and Exp-Golomb residuals at CIF, 1 I + 3 P each, decoded
+   bit-exactly, with the host entropy ms of a P frame;
+20. 3-view coding at CIF (side views the centre shifted by +-4 pels), three
+   views of 1 I + 3 P decoded bit-exactly, with the cross_cells launches of
+   the path (R = 8 on the side views);
+21. region coding at CIF (a textured square over a still background, masks
+   from ``segment_sequence`` over 7 frames, every mask used holding the
+   object), 1 I + 3 P decoded with the masks bit-exactly, and one region
+   frame's device ms by stage;
+22. one QCIF sequence per fractal option (classic, rate control, annexb,
+   rtp, CABAC, Exp-Golomb, 3-view, region): card stream == CPU stream;
+23. ``frame_metrics`` of a CIF reconstruction on the card (numpy input, the
+   default device) against the same call with ``device="cpu"``.
+
+Stage times are spans between CUDA events that the codec itself records
+(``dispatch_frame(marks=)``, ``encode_region_frame(marks=)``).
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Frames are made from ``--seed``: a
@@ -172,26 +200,36 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILER_WINDOWS = 3
+
+
 def kernel_device_ms(fn, reps: int, name: str = "cross_cells_kernel") -> float:
     """Mean device time in ms of one launch of the kernel whose name holds
     ``name``, from the kernel events torch.profiler records over ``reps``
-    calls of ``fn`` (after one warm-up call).  Fails unless every call
-    launched the kernel exactly once."""
+    calls of ``fn`` (after one warm-up call).  A window in which the
+    profiler records fewer kernel events than calls is traced again, up to
+    PROFILER_WINDOWS windows; fails unless one window saw every call launch
+    the kernel exactly once."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.device_time_total for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    check(len(us) == reps and all(u > 0 for u in us),
-          f"the profiler saw {len(us)} {name} launches with device time, "
-          f"not {reps}")
-    return sum(us) / len(us) / 1e3
+    for attempt in range(1, PROFILER_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.device_time_total for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if len(us) == reps and all(u > 0 for u in us):
+            return sum(us) / len(us) / 1e3
+        print(f"[profiler] window {attempt} of {PROFILER_WINDOWS} saw "
+              f"{len(us)} {name} "
+              f"launches with device time, not {reps}", flush=True)
+    fail(f"the profiler saw no complete window of {reps} {name} launches "
+         f"in {PROFILER_WINDOWS} tries")
 
 
 def phase_device_and_build():
@@ -232,6 +270,8 @@ def phase_device_and_build():
 KERNEL_CASES = (
     ("cif_luma", 288, 352, 7, 4, 0),
     ("cif_chroma", 144, 176, 7, 4, 0),
+    ("cif_luma_views3", 288, 352, 7, 8, 0),   # 3-view side views: two frames
+    ("cif_chroma_views3", 144, 176, 7, 8, 0),
     ("1080p_luma", 1088, 1920, 7, 4, 0),
     ("cif_luma_mode1", 288, 352, 7, 4, 1),
     ("cif_luma_mode2", 288, 352, 7, 4, 2),
@@ -312,40 +352,72 @@ def cif_config(H: int, W: int):
                                              use_halfpel_refs=True))
 
 
-def p_frame_stages(codec, frame, ref):
-    """Device ms of each stage of one P frame (CUDA events around the same
-    calls FractalCodec._p_plane makes), plus the host entropy coding ms."""
+def fractal_codec(H: int, W: int, device: str = "cuda", **kw):
+    """The fractal main path's codec (``cif_config``) with config fields
+    ``kw`` replaced."""
+    import dataclasses
+    from h264tpu_torch.models.fractal_codec import FractalCodec
+    return FractalCodec(dataclasses.replace(cif_config(H, W), **kw),
+                        device=device)
+
+
+def fractal_decode_check(label: str, stream: bytes, results, masks=None):
+    """The port's fractal decoder reproduces the encoder's reconstruction of
+    every frame (of every view); returns the decode seconds."""
+    from h264tpu_torch.models.fractal_codec import FractalDecoder
+    t0 = time.perf_counter()
+    decoded = FractalDecoder(device="cuda").decode(stream, masks=masks)
+    dec_s = time.perf_counter() - t0
+    views = (results, decoded) if not isinstance(results[0], list) else \
+        (sum(results, []), sum(decoded, []))
+    check(len(views[0]) == len(views[1]), f"{label}: decoder frame count")
+    for i, (r, planes) in enumerate(zip(*views)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"{label}: decoded frame {i} plane {c} != encoder recon")
+    return dec_s
+
+
+P_STAGES = ("search", "fractal_recon", "residual", "deblock")
+CLASSIC_STAGES = ("full_search", "subpel", "mc_residual", "deblock")
+REGION_STAGES = ("region_search", "region_recon", "luma_residual",
+                 "chroma_fractal")
+
+
+def stage_ms(marks, names) -> dict:
+    """Device ms between consecutive CUDA events of ``marks``, the i-th
+    interval summed into ``names[i % len(names)]`` (one round of names per
+    plane)."""
+    check(len(marks) > 1 and (len(marks) - 1) % len(names) == 0,
+          f"{len(marks)} stage events for stages {names}")
+    marks[-1].synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for i in range(len(marks) - 1):
+        totals[names[i % len(names)]] += marks[i].elapsed_time(marks[i + 1])
+    return totals
+
+
+def start_marks():
+    import torch
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    return marks
+
+
+def p_frame_stages(codec, frame, ref, ref2=None):
+    """Device ms of each stage of one P frame (fractal or classic, as the
+    codec's config says), summed over its planes, from the CUDA events the
+    codec records in ``dispatch_frame(marks=)``; plus the host entropy
+    coding ms of ``finalize_frame``.  ``ref2`` is a 3-view side view's
+    second reference frame."""
     import torch
     from h264tpu_torch.models import fractal_codec as FC
-    from h264tpu_torch.ops import fractal as F, transform as T, deblock as DB
-    orgs = FC._as_planes(frame, codec.device)
-    refs = FC._as_planes(ref, codec.device)
-    qps = (codec.cfg.qp,) + (T.chroma_qp(codec.cfg.qp),) * 2
-    names = ("search", "fractal_recon", "residual", "deblock")
-    totals = dict.fromkeys(names, 0.0)
-    for i, (org, rf) in enumerate(zip(orgs, refs)):
-        h, w = org.shape
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        orgp, refp = FC._pad16(org), FC._pad16(rf)
-        hp, wp = orgp.shape
-        tree = F.search_plane(orgp, refp, **codec._search_kw)
-        ev[1].record()
-        maps = F.leaf_maps(tree, hp, wp)
-        frec = F.reconstruct_from_maps(maps, refp, hp, wp)[:h, :w]
-        ev[2].record()
-        zz, rec = T.residual_code_plane(org, frec, qps[i], i == 0)
-        ev[3].record()
-        nz = (zz != 0).any(dim=-1).reshape(h // 4, w // 4)
-        bs_v, bs_h = DB.strengths_fractal(
-            {k: m[:h // 4, :w // 4] for k, m in maps.items()}, nz)
-        DB.deblock_plane_grouped(rec, bs_v, bs_h, qps[i], i == 0, 1)
-        ev[4].record()
-        ev[4].synchronize()
-        for k, name in enumerate(names):
-            totals[name] += ev[k].elapsed_time(ev[k + 1])
-    pending = codec.dispatch_frame(frame, ref, 1)
+    frame = FC._as_planes(frame, codec.device)
+    marks = start_marks()
+    pending = codec.dispatch_frame(frame, ref, 1, ref2=ref2, marks=marks)
     torch.cuda.synchronize()
+    totals = stage_ms(marks, CLASSIC_STAGES if codec.cfg.inter_mode ==
+                      "classic" else P_STAGES)
     t0 = time.perf_counter()
     codec.finalize_frame(pending)
     totals["host_entropy"] = (time.perf_counter() - t0) * 1e3
@@ -378,7 +450,7 @@ def device_kernel_ms(codec, frame, ref, profile_dir=None):
 
 def phase_main_path(seed: int, profile_dir=None):
     import torch
-    from h264tpu_torch.models.fractal_codec import FractalCodec, FractalDecoder
+    from h264tpu_torch.models.fractal_codec import FractalCodec
     from h264tpu_torch.ops import fractal as F
 
     H, W = 288, 352
@@ -406,15 +478,7 @@ def phase_main_path(seed: int, profile_dir=None):
           f"{len(stream)} bytes, cross_cells launches {launches['cross_cells']}",
           flush=True)
 
-    t0 = time.perf_counter()
-    decoded = FractalDecoder(device="cuda").decode(stream)
-    dec_s = time.perf_counter() - t0
-    check(len(decoded) == len(results), "decoder returned a wrong frame count")
-    for i, (r, planes) in enumerate(zip(results, decoded)):
-        for p in range(3):
-            check(planes[p].shape == r.recon[p].shape
-                  and np.array_equal(planes[p], r.recon[p]),
-                  f"decoded frame {i} plane {p} != encoder recon")
+    dec_s = fractal_decode_check("cif", stream, results)
     print(f"[cif] decode: bit-exact with the encoder recon, {dec_s:.3f} s",
           flush=True)
 
@@ -1460,6 +1524,290 @@ def phase_avc_rc_1080p(seed: int):
               {k: round(v, 3) for k, v in stages.items()}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the fractal codec's options: classic inter, rate control, containers,
+# CABAC and Exp-Golomb residuals, 3-view and region coding, metrics
+# ---------------------------------------------------------------------------
+
+def timed_encode(encode, n: int):
+    """(encode(n)'s output, its seconds, P-frame interval ms) on the host
+    clock, synchronised: encode(1), then encode(n); the interval is
+    (t(n) - t(1)) / (n - 1), as ``timed_sequence`` takes it for the AVC
+    phases (which warm up first: here phase 3 has warmed the CIF path)."""
+    import torch
+
+    def run(k):
+        t0 = time.perf_counter()
+        out = encode(k)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, one_s = run(1)
+    out, seq_s = run(n)
+    return out, seq_s, (seq_s - one_s) / (n - 1) * 1e3
+
+
+def stage_json(stages: dict) -> str:
+    return json.dumps({k: round(v, 3) for k, v in stages.items()})
+
+
+def phase_fractal_classic_cif(seed: int):
+    """Classic H.264-style inter at the fractal CIF configuration (ME search
+    range 16, the config default): 1 I + 4 P, decoded bit-exactly; the
+    P-frame interval and one P frame's device stages."""
+    H, W = 288, 352
+    frames = blocky_frames(5, H, W, seed)
+    codec = fractal_codec(H, W, inter_mode="classic")
+    (results, stream), seq_s, p_ms = timed_encode(
+        lambda k: codec.encode_sequence(frames[:k]), 5)
+    check([r.frame_type for r in results] == ["I"] + ["P"] * 4,
+          "fractal classic: unexpected frame types")
+    dec_s = fractal_decode_check("fractal classic cif", stream, results)
+    stages = p_frame_stages(codec, frames[1], results[0].recon_dev)
+    print(f"[fractal classic cif] bits {[r.bits for r in results]}, PSNR-Y "
+          f"{[round(float(r.psnr_y), 3) for r in results]}; decode "
+          f"bit-exact in {dec_s:.3f} s; 1 I + 4 P {seq_s:.3f} s, P-frame "
+          f"interval {p_ms:.1f} ms; one P frame's device ms "
+          + stage_json(stages), flush=True)
+
+
+def phase_fractal_rc_cif(seed: int):
+    """Rate control at the fractal CIF configuration, 1 I + 5 P: the budget
+    is the fixed-QP-24 rate of the same frames at 30 frames/s."""
+    H, W, n = 288, 352, 6
+    frames = blocky_frames(n, H, W, seed)
+    fixed, _ = fractal_codec(H, W).encode_sequence(frames)
+    bps = float(np.mean([r.bits for r in fixed[1:]])) * 30.0
+    codec = fractal_codec(H, W, rate_control=True, target_bitrate=bps,
+                          frame_rate=30.0)
+    (results, stream), seq_s, p_ms = timed_encode(
+        lambda k: codec.encode_sequence(frames[:k]), n)
+    check([r.frame_type for r in results] == ["I"] + ["P"] * (n - 1),
+          "fractal rc: unexpected frame types")
+    dec_s = fractal_decode_check("fractal rc cif", stream, results)
+    budget = bps / 30.0
+    p_bits = [r.bits for r in results[1:]]
+    print(f"[fractal rc cif] QP per frame {[r.qp for r in results]}; P bits "
+          f"{p_bits} against {budget:.0f} a frame (fixed QP 24: "
+          f"{[r.bits for r in fixed[1:]]}), mean {np.mean(p_bits) / budget:.3f}"
+          f" of it; decode bit-exact in {dec_s:.3f} s; 1 I + {n - 1} P "
+          f"{seq_s:.3f} s, P-frame interval {p_ms:.1f} ms (sequential: each "
+          f"QP waits for the last frame's bits)", flush=True)
+
+
+def drop_rtp_frames(stream: bytes, lost) -> bytes:
+    """The RTP packet file without the packets of the frame units whose
+    index is in ``lost``."""
+    from h264tpu_torch.bitstream import nal, rtp
+    keep = []
+    for p in rtp.read_rtp_file(stream):
+        n = nal.nalu_from_bytes(p.payload)
+        if n.nal_type != nal.NAL_FVC_FRAME or \
+                ((n.rbsp[0] << 8) | n.rbsp[1]) not in lost:
+            keep.append(p)
+    return rtp.write_rtp_file(keep)
+
+
+def phase_fractal_containers_cif(seed: int):
+    """Annex-B and RTP at the fractal CIF configuration, 1 I + 3 P each,
+    decoded bit-exactly; RTP with frame 2's packet dropped: frames 0-1
+    exact, frame 2 a copy of frame 1."""
+    from h264tpu_torch.models.fractal_codec import FractalDecoder
+    H, W = 288, 352
+    frames = blocky_frames(4, H, W, seed)
+    for kind in ("annexb", "rtp"):
+        codec = fractal_codec(H, W, container=kind)
+        (results, stream), _, p_ms = timed_encode(
+            lambda k: codec.encode_sequence(frames[:k]), 4)
+        check(FractalDecoder.detect_container(stream) == kind,
+              f"fractal {kind}: container not detected")
+        dec_s = fractal_decode_check(f"fractal {kind} cif", stream, results)
+        print(f"[fractal {kind} cif] {len(stream)} bytes, P-frame interval "
+              f"{p_ms:.1f} ms, decode bit-exact in {dec_s:.3f} s", flush=True)
+    damaged = drop_rtp_frames(stream, (2,))
+    dec = FractalDecoder(device="cuda").decode(damaged)
+    want = [r.recon for r in results]
+    check(len(dec) == 4, "fractal rtp loss: decoder frame count")
+    for i, j in ((0, 0), (1, 1), (2, 1)):
+        check(all(np.array_equal(a, b) for a, b in zip(dec[i], want[j])),
+              f"fractal rtp loss: frame {i} != encoder frame {j}")
+    print(f"[fractal rtp cif loss] frame 2's packet dropped ({len(stream)} -> "
+          f"{len(damaged)} bytes): frames 0-1 exact, frame 2 concealed by a "
+          f"copy of frame 1, frame 3 decoded from it", flush=True)
+
+
+def phase_fractal_entropy_cif(seed: int):
+    """CABAC and Exp-Golomb residuals at the fractal CIF configuration,
+    1 I + 3 P each, decoded bit-exactly, with the host entropy ms of a P
+    frame."""
+    import torch
+    from h264tpu_torch.utils.config import EntropyMode
+    H, W = 288, 352
+    frames = blocky_frames(4, H, W, seed)
+    for mode in (EntropyMode.CABAC, EntropyMode.EXP_GOLOMB):
+        codec = fractal_codec(H, W, entropy=mode)
+        (results, stream), _, p_ms = timed_encode(
+            lambda k: codec.encode_sequence(frames[:k]), 4)
+        label = f"fractal {mode.name.lower()} cif"
+        dec_s = fractal_decode_check(label, stream, results)
+        pending = codec.dispatch_frame(frames[1], results[0].recon_dev, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codec.finalize_frame(pending)
+        ent_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[{label}] bits {[r.bits for r in results]}; P-frame "
+              f"interval {p_ms:.1f} ms; decode bit-exact in {dec_s:.3f} s; "
+              f"host entropy of one P frame {ent_ms:.1f} ms", flush=True)
+
+
+def phase_fractal_views_cif(seed: int):
+    """3-view coding at the fractal CIF configuration: three views of 1 I +
+    3 P, the side views the centre shifted by +-4 pels; every view decodes
+    bit-exactly.  Returns the cross_cells launches of the encode."""
+    import torch
+    from h264tpu_torch.ops import fractal as F
+    H, W = 288, 352
+    centre = blocky_frames(4, H, W, seed)
+    views = [centre] + [[tuple(np.roll(p, s if c == 0 else s // 2, axis=1)
+                               for c, p in enumerate(f)) for f in centre]
+                        for s in (4, -4)]
+    codec = fractal_codec(H, W, views=3)
+
+    def encode(k):
+        F.cross_cell_sums.launches = 0
+        return codec.encode_sequence_views([v[:k] for v in views])
+    (results, stream), seq_s, p_ms = timed_encode(encode, 4)
+    launches = F.cross_cell_sums.launches
+    check(launches > 0, "the 3-view path launched cross_cells no time")
+    dec_s = fractal_decode_check("fractal views3 cif", stream, results)
+    stages = p_frame_stages(codec, views[1][1], results[1][0].recon_dev,
+                            results[0][1].recon_dev)
+    print(f"[fractal views3 cif] bits per view "
+          f"{[[r.bits for r in v] for v in results]}; 12 frames in "
+          f"{seq_s:.3f} s, interval of a P frame of all three views "
+          f"{p_ms:.1f} ms, cross_cells launches {launches} (R = 8 on the "
+          f"side views' P planes); decode bit-exact in {dec_s:.3f} s; one "
+          f"side view's P frame by stage (ms): " + stage_json(stages),
+          flush=True)
+    return launches
+
+
+def square_frames(n: int, H: int, W: int, seed: int, size: int = 96):
+    """A textured square moving (2, 3) pels a frame over a still blocky
+    background (the region phase's object); chroma a flat square."""
+    rng = np.random.default_rng(seed)
+    bg = [np.kron(rng.integers(40, 90, (h // 8, w // 8)), np.ones((8, 8)))
+          for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    sq = rng.integers(150, 250, (size, size))
+    out = []
+    for i in range(n):
+        y, u = bg[0].copy(), bg[1].copy()
+        y0, x0 = 64 + 2 * i, 96 + 3 * i
+        y[y0:y0 + size, x0:x0 + size] = sq
+        u[y0 // 2:(y0 + size) // 2, x0 // 2:(x0 + size) // 2] = 200
+        out.append(tuple(p.astype(np.uint8) for p in (y, u, bg[2])))
+    return out
+
+
+def phase_fractal_region_cif(seed: int):
+    """Region coding at the fractal CIF configuration: masks from
+    segment_sequence over 7 frames of a textured square over a still
+    background (each frame is differenced against frames 3 and 6 ahead, so
+    the first 4 masks all hold the object); 1 I + 3 R of those frames,
+    decoded with the masks bit-exactly; the region frame's interval and its
+    device stages."""
+    import torch
+    from h264tpu_torch.models import fractal_codec as FC
+    from h264tpu_torch.ops import segment as SG
+    H, W = 288, 352
+    frames = square_frames(7, H, W, seed)
+    t0 = time.perf_counter()
+    masks = [m.cpu().numpy() for m in SG.segment_sequence(
+        [f[0] for f in frames], "cuda")][:4]
+    seg_ms = (time.perf_counter() - t0) * 1e3
+    obj = [int((m > 0).sum()) for m in masks]
+    check(all(o > 0 for o in obj), f"fractal region: empty masks {obj}")
+    codec = fractal_codec(H, W, num_regions=2)
+    (results, stream, _), seq_s, p_ms = timed_encode(
+        lambda k: codec.encode_sequence_region(frames[:k], masks[:k]), 4)
+    check([r.frame_type for r in results] == ["I", "R", "R", "R"],
+          "fractal region: unexpected frame types")
+    dec_s = fractal_decode_check("fractal region cif", stream, results, masks)
+    marks = start_marks()
+    codec.encode_region_frame(FC._as_planes(frames[1], codec.device),
+                              results[0].recon_dev, masks[1], masks[0],
+                              marks=marks)
+    torch.cuda.synchronize()
+    stages = stage_ms(marks, REGION_STAGES)
+    print(f"[fractal region cif] segmentation of 7 frames {seg_ms:.1f} ms; "
+          f"object pixels per mask {obj}; bits {[r.bits for r in results]}; "
+          f"1 I + 3 R {seq_s:.3f} s, region frame interval {p_ms:.1f} ms; "
+          f"decode bit-exact in {dec_s:.3f} s; one region frame's device ms "
+          + stage_json(stages), flush=True)
+
+
+def fractal_option_streams(H: int, W: int, seed: int, device: str):
+    """{option: stream} of a short sequence per fractal codec option."""
+    from h264tpu_torch.utils.config import EntropyMode
+    frames = blocky_frames(3, H, W, seed)
+    out = {}
+    for name, kw in (("classic", dict(inter_mode="classic")),
+                     ("rc", dict(rate_control=True, target_bitrate=200000.0)),
+                     ("annexb", dict(container="annexb")),
+                     ("rtp", dict(container="rtp")),
+                     ("cabac", dict(entropy=EntropyMode.CABAC)),
+                     ("exp_golomb", dict(entropy=EntropyMode.EXP_GOLOMB))):
+        out[name] = fractal_codec(H, W, device, **kw).encode_sequence(
+            frames)[1]
+    side = [tuple(np.roll(p, 2, axis=1) for p in f) for f in frames]
+    out["views3"] = fractal_codec(H, W, device, views=3).encode_sequence_views(
+        [frames, side, frames])[1]
+    out["region"] = fractal_codec(H, W, device, num_regions=2
+                                  ).encode_sequence_region(
+        square_frames(3, H, W, seed, 48))[1]
+    return out
+
+
+def phase_fractal_options_card_vs_cpu(seed: int):
+    """One short QCIF sequence per fractal codec option: the card's stream
+    equals the CPU's byte for byte."""
+    H, W = 144, 176
+    gpu = fractal_option_streams(H, W, seed, "cuda")
+    cpu = fractal_option_streams(H, W, seed, "cpu")
+    for name in gpu:
+        check(gpu[name] == cpu[name],
+              f"fractal QCIF {name} stream from the card != stream from "
+              "the CPU")
+    print("[fractal qcif options] card stream == CPU stream: " + ", ".join(
+        f"{k} {len(v)} bytes" for k, v in gpu.items()), flush=True)
+
+
+METRICS_RTOL = 1e-12   # tests/test_torch_metrics.py: exact float64 window sums
+
+
+def phase_metrics(seed: int):
+    """frame_metrics of a CIF reconstruction on the card against the same
+    call on the CPU."""
+    import torch
+    from h264tpu_torch.utils.metrics import frame_metrics, ms_ssim
+    H, W = 288, 352
+    frames = blocky_frames(2, H, W, seed)
+    results, _ = fractal_codec(H, W).encode_sequence(frames)
+    org, rec = frames[1], results[1].recon
+    gpu = frame_metrics(org, rec)        # numpy in: the card by default
+    cpu = frame_metrics(org, rec, device="cpu")
+    err = max(abs(gpu[k] - cpu[k]) / abs(cpu[k]) for k in cpu)
+    check(err <= METRICS_RTOL, f"frame_metrics card vs CPU rel err {err}")
+    check(abs(gpu["psnr_y"] - results[1].psnr_y) < 1e-9,
+          "frame_metrics PSNR-Y != the encoder's")
+    msg = float(ms_ssim(torch.as_tensor(org[0]).cuda(),
+                        torch.as_tensor(rec[0]).cuda()))
+    print(f"[metrics cif] card == CPU within rel {err:.2e} (bound "
+          f"{METRICS_RTOL}): " + json.dumps(
+              {k: round(v, 6) for k, v in gpu.items()})
+          + f"; MS-SSIM Y {msg:.6f}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1512,6 +1860,17 @@ def main(argv=None) -> int:
         ("avc high cif last P", rec_high, -1),
         ("avc high qcif (ii) P 1", rec_qcif["ii"], 1),
         ("avc high qcif (ii) P 2", rec_qcif["ii"], 2)])
+    timed("fractal classic cif", phase_fractal_classic_cif, args.seed)
+    timed("fractal rate control cif", phase_fractal_rc_cif, args.seed)
+    timed("fractal containers cif", phase_fractal_containers_cif, args.seed)
+    timed("fractal cabac and exp-golomb cif", phase_fractal_entropy_cif,
+          args.seed)
+    launches_views = timed("fractal 3-view cif", phase_fractal_views_cif,
+                           args.seed)
+    timed("fractal region cif", phase_fractal_region_cif, args.seed)
+    timed("fractal qcif options card vs cpu",
+          phase_fractal_options_card_vs_cpu, args.seed)
+    timed("metrics", phase_metrics, args.seed)
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",
@@ -1523,7 +1882,8 @@ def main(argv=None) -> int:
         "bound_by": krows[case]["bound_by"], "library_ms": None,
         "wrapper_call_ms": krows[case]["wrapper_call_ms"]}
         for case, n_launch in (("cif_luma", launches["cross_cells"]),
-                               ("1080p_luma", launches_1080p))]}
+                               ("1080p_luma", launches_1080p),
+                               ("cif_luma_views3", launches_views))]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

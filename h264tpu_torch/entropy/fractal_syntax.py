@@ -1,22 +1,29 @@
-"""FVC bitstream syntax — serialization of fractal trees, intra modes and
-residual levels (the port's own copy of the parts of
-``h264tpu/entropy/fractal_syntax.py`` that the IPPP path uses).
+"""FVC bitstream syntax — serialization of fractal trees, intra modes,
+residual levels and region parameters (the port's own copy of
+``h264tpu/entropy/fractal_syntax.py``).
 
 Stream layout
   header:  magic 'FVC1' u(32) | version u(8) | width u(16) | height u(16)
            intra_period u(16) | qp u(8) | search_range u(8) | halfpel u(8)
            deblock u(8) | entropy u(8) | views u(8) | num_frames u(32)
            tile_rows u(8)
-  frame:   type u(8) (0=I, 1=P) | qp u(8) | payload | byte-align
+  frame:   type u(8) (0=I, 1=P, 2=classic P, 3=region P) | qp u(8) |
+           payload | byte-align
   I payload:   intra_modes(P) residual(P) for P in Y, U, V
   P payload:   tree(P) residual(P) for P in Y, U, V
+  classic P:   se(mv_x) se(mv_y) per 16x16 MB, then residual(P) per plane
+  region P:    region_params residual(Y), then tree(P) residual(P) for U, V
   tree (on the 16-padded plane grid):
            split flags u(1) x nMB (raster)
            b8 modes u(2) x 4 per split MB
            per shape s in (16x16, 8x8, 8x4w, 4x8t, 4x4), leaves in raster
-           order, field-major: ref u(2) [if halfpel], then dx+SR, dy+SR,
-           (a+235)/5, (β+60)/5 each as first value raw + se(deltas)
-  residual:  H.264 CAVLC of every 4x4 block (entropy/cavlc.py)
+           order, field-major: ref u(2) [u(3) with two reference frames; if
+           halfpel], then dx+SR, dy+SR, (a+235)/5, (β+60)/5 each as first
+           value raw + se(deltas)
+  residual:  by the header's entropy mode: H.264 CAVLC of every 4x4 block
+           (entropy/cavlc.py); CABAC (byte-aligned u(32) length + the
+           M-coder's bytes, entropy/cabac_eng.py); or Exp-Golomb sets
+           ue(nnz) per block | ue(run) per level | se(level) per level
 """
 
 from __future__ import annotations
@@ -24,29 +31,43 @@ from __future__ import annotations
 import numpy as np
 
 from .bitio import BitWriter, BitReader
-from . import cavlc
+from . import cabac_eng, cavlc
 from ..ops.fractal import SHAPES
 
 MAGIC = 0x46564331  # 'FVC1'
 
-ENTROPY_CAVLC = 0   # utils.config.EntropyMode.CAVLC
-
-
-def _cavlc_only(mode: int):
-    if mode != ENTROPY_CAVLC:
-        raise NotImplementedError(
-            f"entropy mode {mode}: only CAVLC residuals are ported; CABAC "
-            "(entropy/cabac_eng.py) and Exp-Golomb sets come in a later slice")
+# residual entropy modes; equal to utils.config.EntropyMode
+ENTROPY_CAVLC = 0   # H.264 CAVLC
+ENTROPY_CABAC = 1   # H.264 M-coder arithmetic coding (entropy/cabac_eng.py)
+ENTROPY_EG = 2      # Exp-Golomb coefficient sets
 
 
 def write_residual(w: BitWriter, zz: np.ndarray, cy: int, cx: int, mode: int):
-    _cavlc_only(mode)
-    cavlc.encode_plane(np.asarray(zz), cy, cx, w)
+    """Levels [cy*cx, 16] of one plane in the stream's entropy mode."""
+    if mode == ENTROPY_CAVLC:
+        cavlc.encode_plane(np.asarray(zz), cy, cx, w)
+    elif mode == ENTROPY_CABAC:
+        payload = cabac_eng.encode_plane(np.asarray(zz), cy, cx)
+        pad = (-w.bit_length()) % 8
+        if pad:
+            w.u(0, pad)
+        w.u(len(payload), 32)
+        if payload:
+            w.u(np.frombuffer(payload, np.uint8), 8)
+    else:
+        write_coeff_set(w, np.asarray(zz))
 
 
 def read_residual(r: BitReader, cy: int, cx: int, mode: int) -> np.ndarray:
-    _cavlc_only(mode)
-    return cavlc.decode_plane(r, cy, cx)
+    if mode == ENTROPY_CAVLC:
+        return cavlc.decode_plane(r, cy, cx)
+    if mode == ENTROPY_CABAC:
+        r.byte_align()
+        n = r.u(32)
+        payload = r.data[r.pos // 8:r.pos // 8 + n]
+        r.pos += 8 * n
+        return cabac_eng.decode_plane(payload, cy, cx)
+    return read_coeff_set(r, cy * cx)
 
 
 def _mv_bits(search_range: int) -> int:
@@ -69,8 +90,11 @@ def _leaf_corner_mask(shape_map: np.ndarray, code: int):
 
 
 def write_tree(w: BitWriter, maps: dict, search_range: int,
-               use_halfpel: bool):
-    ref_bits = 2 if use_halfpel else 0
+               use_halfpel: bool, ref_bits: int = None):
+    """``ref_bits``: width of the ref field; 2 with half-pel planes, 0
+    without, 3 for two reference frames (3-view side views)."""
+    if ref_bits is None:
+        ref_bits = 2 if use_halfpel else 0
     shape = np.asarray(maps["shape"])
     mb_split = shape[::4, ::4] != 0
     w.u(mb_split.astype(np.int64).reshape(-1), 1)
@@ -104,8 +128,9 @@ def write_tree(w: BitWriter, maps: dict, search_range: int,
 
 
 def read_tree(r: BitReader, Hp: int, Wp: int, search_range: int,
-              use_halfpel: bool) -> dict:
-    ref_bits = 2 if use_halfpel else 0
+              use_halfpel: bool, ref_bits: int = None) -> dict:
+    if ref_bits is None:
+        ref_bits = 2 if use_halfpel else 0
     nmby, nmbx = Hp // 16, Wp // 16
     cy, cx = Hp // 4, Wp // 4
     mb_split = r.u_array(nmby * nmbx, 1).reshape(nmby, nmbx).astype(bool)
@@ -201,6 +226,45 @@ def read_intra_modes(r: BitReader, cy: int, cx: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# Exp-Golomb coefficient sets
+# ---------------------------------------------------------------------------
+
+def write_coeff_set(w: BitWriter, zz: np.ndarray):
+    """zz: [nblocks, 16] levels in zig-zag order: ue(nnz) per block, then
+    ue(run) and se(level) of every nonzero level in block order."""
+    zz = np.asarray(zz, dtype=np.int64)
+    nz = zz != 0
+    w.ue(nz.sum(axis=1))
+    if not nz.any():
+        return
+    pos = np.broadcast_to(np.arange(16), zz.shape)[nz]
+    block = np.broadcast_to(np.arange(zz.shape[0])[:, None], zz.shape)[nz]
+    prev = np.empty_like(pos)
+    prev[0] = -1
+    prev[1:] = pos[:-1]
+    prev[np.r_[True, block[1:] != block[:-1]]] = -1
+    w.ue(pos - prev - 1)
+    w.se(zz[nz])
+
+
+def read_coeff_set(r: BitReader, nblocks: int) -> np.ndarray:
+    nnz = r.ue_array(nblocks)
+    total = int(nnz.sum())
+    zz = np.zeros((nblocks, 16), dtype=np.int64)
+    if total == 0:
+        return zz
+    runs = r.ue_array(total)
+    levels = r.se_array(total)
+    block = np.repeat(np.arange(nblocks), nnz)
+    csum = np.cumsum(runs + 1)
+    # cumulative steps before each block's first level
+    first = np.cumsum(nnz) - nnz
+    base = np.where(first > 0, csum[np.maximum(first, 1) - 1], 0)
+    zz[block, csum - np.repeat(base, nnz) - 1] = levels
+    return zz
+
+
+# ---------------------------------------------------------------------------
 # Stream header
 # ---------------------------------------------------------------------------
 
@@ -231,3 +295,41 @@ def read_header(r: BitReader) -> dict:
                entropy=r.u(8), views=r.u(8), num_frames=r.u(32))
     out["tile_rows"] = r.u(8) if version >= 2 else 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Region-coded frame parameters: per-object 16x16 grids
+# ---------------------------------------------------------------------------
+
+def write_region_params(w: BitWriter, params: dict, search_range: int,
+                        use_halfpel: bool):
+    """Per object (0 = background, 1 = object), field-major over the MB
+    raster: [ref u(2) if half-pel] dx+SR dy+SR u(mv_bits), (a+235)/5 u(7),
+    (β+60)/5 u(6)."""
+    sr = search_range
+    mvb = _mv_bits(sr)
+    for obj in range(2):
+        if use_halfpel:
+            w.u(np.asarray(params["ref"][obj]).reshape(-1), 2)
+        w.u(np.asarray(params["dx"][obj]).reshape(-1) + sr, mvb)
+        w.u(np.asarray(params["dy"][obj]).reshape(-1) + sr, mvb)
+        w.u((np.asarray(params["a"][obj]).reshape(-1) + 235) // 5, 7)
+        w.u((np.asarray(params["beta"][obj]).reshape(-1) + 60) // 5, 6)
+
+
+def read_region_params(r: BitReader, nmby: int, nmbx: int, search_range: int,
+                       use_halfpel: bool) -> dict:
+    """Inverse of :func:`write_region_params`: [2, nmby, nmbx] int32 maps."""
+    sr = search_range
+    mvb = _mv_bits(sr)
+    n = nmby * nmbx
+    out = {k: [] for k in ("ref", "dx", "dy", "a", "beta")}
+    for _ in range(2):
+        out["ref"].append(r.u_array(n, 2) if use_halfpel
+                          else np.zeros(n, np.int64))
+        out["dx"].append(r.u_array(n, mvb) - sr)
+        out["dy"].append(r.u_array(n, mvb) - sr)
+        out["a"].append(r.u_array(n, 7) * 5 - 235)
+        out["beta"].append(r.u_array(n, 6) * 5 - 60)
+    return {k: np.stack(v).reshape(2, nmby, nmbx).astype(np.int32)
+            for k, v in out.items()}

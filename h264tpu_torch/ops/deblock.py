@@ -157,6 +157,25 @@ def strengths_intra(h: int, w: int, device):
             device_const(f"bs_intra_h{h}x{w}", bs_h.astype(np.int32), device))
 
 
+def strengths_inter(mvx_q: torch.Tensor, mvy_q: torch.Tensor,
+                    nz_cells: torch.Tensor):
+    """bS maps for a classic (H.264 ME) P frame from per-4x4-cell
+    quarter-pel MV maps: 2 with coded coefficients on either side, else 1
+    when the MV difference across the edge reaches 4 quarter pels, else 0."""
+    nz = nz_cells.to(torch.bool)
+
+    def edge(axis):
+        def sh(x):
+            return torch.roll(x, 1, dims=axis)
+
+        coeff = nz | sh(nz)
+        moved = (((mvx_q - sh(mvx_q)).abs() >= 4)
+                 | ((mvy_q - sh(mvy_q)).abs() >= 4))
+        return torch.where(coeff, 2, torch.where(moved, 1, 0)).to(torch.int32)
+
+    return edge(1), edge(0)
+
+
 def strengths_fractal(maps: dict, nz_cells: torch.Tensor):
     """bS maps for a fractal P frame from leaf maps + nonzero-coeff cells
     (P-frame rules of ``GetStrength``, FR/src/loopFilter.c:192): 2 if either

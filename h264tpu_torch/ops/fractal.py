@@ -80,6 +80,15 @@ def build_reference_stack(ref: torch.Tensor, use_halfpel: bool) -> torch.Tensor:
     return torch.stack([ref, *halfpel_planes(ref)])
 
 
+def _reference_planes(ref: torch.Tensor, use_halfpel: bool,
+                      extra_ref_ctx: torch.Tensor = None) -> torch.Tensor:
+    """The stack of ``ref``, then that of ``extra_ref_ctx`` when given."""
+    refs = build_reference_stack(ref, use_halfpel)
+    if extra_ref_ctx is None:
+        return refs
+    return torch.cat([refs, build_reference_stack(extra_ref_ctx, use_halfpel)])
+
+
 # ---------------------------------------------------------------------------
 # Sum tables
 # ---------------------------------------------------------------------------
@@ -325,6 +334,16 @@ class ShapeBest(NamedTuple):
     s_d: torch.Tensor     # Σd of the chosen domain block, int32
 
 
+def first_min(x: torch.Tensor):
+    """(minimum over axis 0, the lowest index reaching it) of x [n, ...]:
+    the same index on the CPU and the card, whatever their reductions."""
+    best = x.amin(dim=0)
+    order = torch.arange(x.shape[0], device=x.device, dtype=torch.int32)
+    order = order.reshape(-1, *([1] * (x.dim() - 1)))
+    sel = torch.where(x == best[None], order, x.shape[0]).amin(dim=0)
+    return best, sel.to(torch.int64)
+
+
 def _pool_cells(x: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
     """Sum trailing [Cy, Cx] cells into non-overlapping (ch x cw) groups."""
     *lead, cy, cx = x.shape
@@ -386,11 +405,7 @@ def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
 
         # lexicographic minimum over (rms, ref, spiral): the first candidate
         # in (ref, offset) order that reaches the minimum rms
-        rms_f = rms.reshape(R * n_off, nby, nbx)
-        best_rms = rms_f.amin(dim=0)
-        order = torch.arange(R * n_off, device=dev, dtype=torch.int32)
-        sel = torch.where(rms_f == best_rms[None], order[:, None, None],
-                          R * n_off).amin(dim=0).to(torch.int64)
+        best_rms, sel = first_min(rms.reshape(R * n_off, nby, nbx))
 
         def take(arr):
             return torch.gather(arr.reshape(R * n_off, nby, nbx), 0,
@@ -444,14 +459,20 @@ def chun_correlation(org: torch.Tensor, ref_c: torch.Tensor) -> torch.Tensor:
 def search_plane(org: torch.Tensor, ref: torch.Tensor, *, search_range: int,
                  tol16: float, tol8: float, use_halfpel: bool = True,
                  search_mode: int = 0, chun_lo: float = 0.9,
-                 chun_hi: float = 1.0, bounds=None) -> TransTree:
+                 chun_hi: float = 1.0, bounds=None,
+                 extra_ref_ctx: torch.Tensor = None) -> TransTree:
     """Full fractal search of one plane against the previous reconstruction
     (``encode_one_macroblock``, FR/src/block_enc.c:508, over every MB at
-    once).  ``org`` and ``ref`` are [H, W] with H, W multiples of 16."""
+    once).  ``org`` and ``ref`` are [H, W] with H, W multiples of 16.
+
+    ``extra_ref_ctx`` is a second reference frame (the side views of 3-view
+    coding): its planes follow the first frame's in the stack (R = 8 with
+    half-pel planes), so on equal rms the (rms, ref, spiral) minimum keeps
+    a plane of the first frame, the reference's strict-improvement order."""
     H, W = org.shape
     assert H % 16 == 0 and W % 16 == 0
     org = org.to(torch.int32)
-    refs = build_reference_stack(ref, use_halfpel)
+    refs = _reference_planes(ref, use_halfpel, extra_ref_ctx)
     offsets = candidate_offsets(search_range, search_mode)
     s16, s8, s84, s48, s44 = _search_all_shapes(org, refs, offsets, bounds)
 
@@ -511,17 +532,19 @@ _SHAPE_LOG2N = np.asarray([8, 6, 5, 5, 4], np.int32)
 
 
 def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
-                          use_halfpel: bool = True) -> torch.Tensor:
+                          use_halfpel: bool = True,
+                          extra_ref_ctx: torch.Tensor = None) -> torch.Tensor:
     """Non-iterative fractal reconstruction of a whole plane from leaf maps.
 
     Exact integer form of ``rec = bound(0.5 + α·d + β − α·mean(d))``
     (FR/src/block_dec.c:113): with a = α·100, N the leaf pixel count and
     S = Σd over the leaf's domain block,
     ``rec = clip(floor((50N + a(dN − S) + 100Nβ) / (100N)), 0, 255)``;
-    S is recomputed from the reference planes as the decoder does.
+    S is recomputed from the reference planes as the decoder does;
+    ``extra_ref_ctx`` as in :func:`search_plane`.
     """
     dev = ref.device
-    refs = build_reference_stack(ref, use_halfpel)
+    refs = _reference_planes(ref, use_halfpel, extra_ref_ctx)
     a, beta, dx, dy, refi, shape = (
         _upsample(maps[k].to(torch.int64), 4, 4)
         for k in ("a", "beta", "dx", "dy", "ref", "shape"))
@@ -554,6 +577,8 @@ def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
 
 
 def reconstruct_plane(tree: TransTree, ref: torch.Tensor, H: int, W: int,
-                      use_halfpel: bool = True) -> torch.Tensor:
+                      use_halfpel: bool = True,
+                      extra_ref_ctx: torch.Tensor = None) -> torch.Tensor:
     """Encoder-side reconstruction: resolve the tree then reconstruct."""
-    return reconstruct_from_maps(leaf_maps(tree, H, W), ref, H, W, use_halfpel)
+    return reconstruct_from_maps(leaf_maps(tree, H, W), ref, H, W, use_halfpel,
+                                 extra_ref_ctx)

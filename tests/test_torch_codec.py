@@ -111,22 +111,41 @@ def test_config_from_dict_round_trip():
 
 
 def test_import_and_encode_load_no_jax():
-    """Importing the port and encoding on the CPU loads neither jax nor
-    h264tpu."""
+    """Importing the port and encoding on the CPU — the IPPP path and every
+    option (classic inter, rate control, Annex-B, RTP, CABAC, Exp-Golomb,
+    region and 3-view coding) — loads neither jax nor h264tpu."""
     code = (
-        "import sys, numpy as np\n"
+        "import dataclasses, sys, numpy as np\n"
         "from h264tpu_torch.utils.config import CodecConfig, FractalConfig\n"
         "from h264tpu_torch.models.fractal_codec import FractalCodec, "
         "FractalDecoder\n"
+        "from h264tpu_torch.utils.metrics import frame_metrics\n"
         "cfg = CodecConfig(width=32, height=32, intra_period=0, qp=30,\n"
         "                  fractal=FractalConfig(search_range=2))\n"
         "rng = np.random.default_rng(0)\n"
         "f = [tuple(rng.integers(0, 255, s).astype(np.uint8)\n"
-        "           for s in ((32, 32), (16, 16), (16, 16))) for _ in range(2)]\n"
-        "res, stream = FractalCodec(cfg, device='cpu').encode_sequence(f)\n"
+        "           for s in ((32, 32), (16, 16), (16, 16))) for _ in range(3)]\n"
+        "def check(res, dec):\n"
+        "    assert all((a == b).all() for r, d in zip(res, dec)\n"
+        "               for a, b in zip(r.recon, d))\n"
+        "for kw in ({}, dict(inter_mode='classic', me_search_range=4),\n"
+        "           dict(rate_control=True, target_bitrate=30000.0),\n"
+        "           dict(container='annexb'), dict(container='rtp'),\n"
+        "           dict(entropy=1), dict(entropy=2)):\n"
+        "    c = dataclasses.replace(cfg, **kw)\n"
+        "    res, stream = FractalCodec(c, device='cpu').encode_sequence(f)\n"
+        "    check(res, FractalDecoder(device='cpu').decode(stream))\n"
+        "c = dataclasses.replace(cfg, num_regions=2)\n"
+        "res, stream, masks = FractalCodec(c, device='cpu')"
+        ".encode_sequence_region(f)\n"
+        "check(res, FractalDecoder(device='cpu').decode(stream, masks=masks))\n"
+        "c = dataclasses.replace(cfg, views=3)\n"
+        "res, stream = FractalCodec(c, device='cpu')"
+        ".encode_sequence_views([f, f[::-1], f])\n"
         "dec = FractalDecoder(device='cpu').decode(stream)\n"
-        "assert all((a == b).all() for r, d in zip(res, dec)\n"
-        "           for a, b in zip(r.recon, d))\n"
+        "for v in range(3):\n"
+        "    check(res[v], dec[v])\n"
+        "assert frame_metrics(f[0], dec[0][0], device='cpu')['psnr_y'] > 10\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'h264tpu' or m.startswith('h264tpu.'))\n"
         "assert not bad, bad\n"
@@ -148,15 +167,3 @@ def test_no_silent_cpu_fallback():
             TCodec(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             TDecoder()
-
-
-@pytest.mark.parametrize("override", [
-    dict(inter_mode="classic"), dict(rate_control=True),
-    dict(num_regions=2), dict(views=3), dict(container="annexb"),
-    dict(entropy=TCfgMod.EntropyMode.CABAC)],
-    ids=["classic", "ratectl", "region", "views3", "annexb", "cabac"])
-def test_unported_options_raise(override):
-    cfg = dataclasses.replace(
-        config_from_dict(dataclasses.asdict(_jax_cfg(64, 64))), **override)
-    with pytest.raises(NotImplementedError):
-        TCodec(cfg, device="cpu")

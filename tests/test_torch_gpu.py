@@ -41,6 +41,8 @@ def _blocky_frames(n, H, W, seed=0):
     (288, 352, 7, 4, 3),
     (288, 352, 16, 4, 0),         # SR 16: dx in groups, a larger window
     (288, 352, 7, 1, 0),          # one reference plane (no half-pel)
+    (288, 352, 7, 8, 0),          # CIF luma, two frames (3-view side views)
+    (144, 176, 7, 8, 0),          # CIF chroma, two frames (the same)
     (72, 88, 4, 8, 0),            # ragged tiles
     (36, 44, 2, 1, 0)])
 def test_cross_cells_kernel_matches_plain_version(H, W, sr, R, mode):
@@ -88,6 +90,42 @@ def test_card_stream_equals_cpu_stream_and_decodes():
     res, s_gpu = FractalCodec(cfg, device="cuda").encode_sequence(frames)
     assert s_gpu == s_cpu
     for r, planes in zip(res, FractalDecoder(device="cuda").decode(s_gpu)):
+        for a, b in zip(r.recon, planes):
+            np.testing.assert_array_equal(a, b)
+
+
+def _fractal_option_stream(name, device):
+    """(results, stream, masks) of a short QCIF sequence with one fractal
+    codec option."""
+    import dataclasses
+    frames = _blocky_frames(3, 144, 176)
+    cfg = CodecConfig(width=176, height=144, qp=24, intra_period=0,
+                      fractal=FractalConfig(search_range=4))
+    opts = dict(classic=dict(inter_mode="classic"),
+                views3=dict(views=3), region=dict(num_regions=2))
+    codec = FractalCodec(dataclasses.replace(cfg, **opts[name]), device=device)
+    if name == "views3":
+        shifted = [tuple(np.roll(p, 2, axis=1) for p in f) for f in frames]
+        res, stream = codec.encode_sequence_views([frames, shifted, frames])
+        return res, stream, None
+    if name == "region":
+        return codec.encode_sequence_region(frames)
+    return (*codec.encode_sequence(frames), None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["classic", "views3", "region"])
+def test_fractal_option_card_stream_equals_cpu_stream(name):
+    """A fractal codec option's QCIF stream from the card equals the CPU's,
+    which the CPU tests hold against the JAX package, and decodes on the
+    card to the encoder's reconstruction."""
+    _need_card()
+    _, s_cpu, _ = _fractal_option_stream(name, "cpu")
+    res, s_gpu, masks = _fractal_option_stream(name, "cuda")
+    assert s_gpu == s_cpu
+    dec = FractalDecoder(device="cuda").decode(s_gpu, masks=masks)
+    views = (res, dec) if name != "views3" else (sum(res, []), sum(dec, []))
+    for r, planes in zip(*views):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
 

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (h264tpu_torch) on one CUDA card: the fractal codec
-and the conformant H.264 encoder.
+"""Drive the PyTorch port (h264tpu_torch) on one CUDA card: the fractal codec,
+the conformant H.264 encoder and the modules around them.
 
     python3 chip_smoke.py [--seed 0] [--trace] [--profile-dir DIR]
 
 Phases, in order; any failure exits non-zero before the result line:
 
-1. device and build: the card's name and power limit, then the hand-written
-   kernels of ``h264tpu_torch/csrc`` built with nvcc (ptxas register and
-   shared-memory report printed);
+1. device and build: the card's name and power limit, the native host
+   stages (``csrc/avc_native.cpp``, ``csrc/fvc_native.cpp``) built with
+   g++, then the hand-written kernels of ``h264tpu_torch/csrc`` built with
+   nvcc (ptxas register and shared-memory report printed);
 2. every kernel against its plain PyTorch version on the card (exact int32
    equality) at the shapes of the main path (CIF luma and chroma, 1080p
    luma, CIF luma and chroma with the 3-view side views' eight reference
@@ -107,7 +108,23 @@ Phases, in order; any failure exits non-zero before the result line:
 22. one QCIF sequence per fractal option (classic, rate control, annexb,
    rtp, CABAC, Exp-Golomb, 3-view, region): card stream == CPU stream;
 23. ``frame_metrics`` of a CIF reconstruction on the card (numpy input, the
-   default device) against the same call with ``device="cpu"``.
+   default device) against the same call with ``device="cpu"``;
+24. the native FVC coders (CAVLC and CABAC residual planes, intra-mode
+   resolution, emulation prevention) against their Python twins on the
+   levels of phase 3's CIF I and P frames: equal bytes, both times;
+25. GOP-parallel fractal encoding at CIF (``GOPEncoder`` with
+   ``gop_workers.fractal_factory`` on the card), 8 frames in 2 GOPs:
+   sequential, 2 threads and 2 spawned processes, each stream equal to the
+   sequential one; frames/s of each and the cross_cells launches of the
+   in-process runs;
+26. ``KDecoderSim`` (K = 8) and ``MultiHypothesisDrift`` over phase 5's
+   reconstructions: card states and drift equal the CPU's bit for bit, ms
+   per step;
+27. the legacy still-image codec at CIF and 1920x1088: card stream == CPU
+   stream, card decode == CPU decode, encode and decode ms;
+28. MVC stereo at CIF in 9 slices (view 1 view 0 shifted 4 pels, 1 IDR + 3
+   P pairs), both views decoded bit-exactly by ``decode_mvc``; QCIF in 3
+   slices, card stream == CPU stream.
 
 Stage times are spans between CUDA events that the codec itself records
 (``dispatch_frame(marks=)``, ``encode_region_frame(marks=)``).
@@ -250,6 +267,12 @@ def phase_device_and_build():
     AN.build()
     AN._load()
     print(f"[build] native host stages {AN.library_path().name} built and "
+          f"loaded in {time.time() - t0:.1f} s", flush=True)
+    from h264tpu_torch.entropy import native as FN
+    t0 = time.time()
+    FN.build()
+    FN._load()
+    print(f"[build] native FVC coders {FN.library_path().name} built and "
           f"loaded in {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     logs = kernels.build_all()
@@ -1808,6 +1831,249 @@ def phase_metrics(seed: int):
           + f"; MS-SSIM Y {msg:.6f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the last single-card modules: native FVC coders, GOP-parallel encoding,
+# loss-aware drift, the legacy still-image codec, MVC stereo
+# ---------------------------------------------------------------------------
+
+def phase_fvc_native_vs_twin(seed: int):
+    """The native FVC coders (``entropy/native.py``) against their Python
+    twins on the levels and intra modes of phase 3's CIF frames 0 (I) and
+    1 (P): equal bytes and levels, with both times per frame."""
+    from h264tpu_torch.bitstream import nal
+    from h264tpu_torch.entropy import cabac_eng, cavlc, native as FN
+    from h264tpu_torch.entropy import fractal_syntax as FS
+    from h264tpu_torch.entropy.bitio import BitReader, BitWriter
+    H, W = 288, 352
+    frames = blocky_frames(2, H, W, seed)
+    codec = fractal_codec(H, W)
+    i_pend = codec.dispatch_frame(frames[0], None, 0)
+    i_res, _ = codec.finalize_frame(i_pend)
+    p_pend = codec.dispatch_frame(frames[1], i_res.recon_dev, 1)
+    _, payload = codec.finalize_frame(p_pend)
+    ms = dict.fromkeys(("cavlc_enc", "cavlc_dec", "cabac_enc", "cabac_dec",
+                        "intra_modes", "ep"), (0.0, 0.0))
+
+    def add(key, nat_ms, twin_ms):
+        ms[key] = (ms[key][0] + nat_ms, ms[key][1] + twin_ms)
+
+    def native_cavlc(zz, cy, cx):
+        codes, lens = FN.cavlc_encode_plane(zz, cy, cx)
+        w = BitWriter()
+        w.raw(codes[lens > 0], lens[lens > 0])
+        return w.to_bytes()
+
+    def python_cavlc(zz, cy, cx):
+        w = BitWriter()
+        cavlc.encode_plane(zz, cy, cx, w)
+        return w.to_bytes()
+
+    for label, pend in (("I", i_pend), ("P", p_pend)):
+        for i, (ph, pw) in enumerate(pend["dims"]):
+            cy, cx = ph // 4, pw // 4
+            zz = pend["host"][f"{i}_zz"].numpy()
+            data, nat = host_ms(lambda: native_cavlc(zz, cy, cx))
+            twin, twin_ms = host_ms(lambda: python_cavlc(zz, cy, cx), 1)
+            check(data == twin, f"native CAVLC != Python, {label} plane {i}")
+            add("cavlc_enc", nat, twin_ms)
+            (lv, _), nat = host_ms(lambda: FN.cavlc_decode_plane(
+                data, 8 * len(data), 0, cy, cx))
+            tw, twin_ms = host_ms(lambda: cavlc.decode_plane(
+                BitReader(data), cy, cx), 1)
+            check(np.array_equal(lv, tw) and np.array_equal(lv, zz),
+                  f"native CAVLC decode != Python, {label} plane {i}")
+            add("cavlc_dec", nat, twin_ms)
+            cab, nat = host_ms(lambda: FN.cabac_encode_plane(zz, cy, cx))
+            tw, twin_ms = host_ms(lambda: cabac_eng.encode_plane(zz, cy, cx),
+                                  1)
+            check(cab == tw, f"native CABAC != Python, {label} plane {i}")
+            add("cabac_enc", nat, twin_ms)
+            lv, nat = host_ms(lambda: FN.cabac_decode_plane(cab, cy, cx))
+            tw, twin_ms = host_ms(lambda: cabac_eng.decode_plane(cab, cy, cx),
+                                  1)
+            check(np.array_equal(lv, tw) and np.array_equal(lv, zz),
+                  f"native CABAC decode != Python, {label} plane {i}")
+            add("cabac_dec", nat, twin_ms)
+            if pend is i_pend:
+                modes = pend["host"][f"{i}_modes"].numpy()
+                w = BitWriter()
+                FS.write_intra_modes(w, modes)
+                r = BitReader(w.to_bytes())
+                use = r.u_array(cy * cx, 1).astype(bool).reshape(cy, cx)
+                rem = r.u_array(int((~use).sum()), 3)
+                got, nat = host_ms(lambda: FN.resolve_intra_modes(
+                    use, rem, cy, cx))
+                tw, twin_ms = host_ms(lambda: FS.resolve_intra_modes_python(
+                    use, rem, cy, cx), 1)
+                check(np.array_equal(got, tw) and np.array_equal(got, modes),
+                      f"native intra modes != Python, plane {i}")
+                add("intra_modes", nat, twin_ms)
+    ebsp, nat = host_ms(lambda: nal.ep_strip(nal.ep_insert(payload)))
+    tw, twin_ms = host_ms(lambda: nal.ep_strip_python(
+        nal.ep_insert_python(payload)), 1)
+    check(ebsp == tw == payload and nal.ep_insert(payload) ==
+          nal.ep_insert_python(payload), "native emulation prevention != "
+          "Python")
+    add("ep", nat, twin_ms)
+    print("[fvc native vs twin] CIF I and P frames, three planes each: equal "
+          "bytes and levels; host ms native / Python per frame pair: "
+          + json.dumps({k: [round(a, 3), round(b, 1)] for k, (a, b)
+                        in ms.items()}), flush=True)
+
+
+def phase_gop_parallel_cif(seed: int):
+    """GOP-parallel fractal encoding at CIF (``GOPEncoder`` with the
+    ``gop_workers.fractal_factory`` codec on the card), 8 frames in 2 GOPs
+    of 4: sequential, 2 threads, 2 spawned processes.  Each stream equals
+    the sequential one; frames/s of each (host clock, process start-up
+    included for the processes) and the cross_cells launches of the
+    in-process runs.  Returns the threaded run's launches."""
+    import functools
+    import torch
+    from h264tpu_torch.models.gop_parallel import GOPEncoder
+    from h264tpu_torch.models.gop_workers import fractal_factory
+    from h264tpu_torch.ops import fractal as F
+    H, W, n = 288, 352, 8
+    frames = blocky_frames(n, H, W, seed)
+    fac = functools.partial(fractal_factory, W, H, 24, search_range=7,
+                            device="cuda")
+    GOPEncoder(fac, 4).encode(frames[:2])                   # warm-up
+    out = {}
+    for mode, kw in (("sequential", {}), ("threads", dict(workers=2)),
+                     ("processes", dict(workers=2, processes=True))):
+        torch.cuda.synchronize()
+        F.cross_cell_sums.launches = 0
+        t0 = time.perf_counter()
+        units, stream = GOPEncoder(fac, 4).encode(frames, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[mode] = dict(stream=stream, fps=n / sec,
+                         launches=F.cross_cell_sums.launches)
+        check(len(units) == 2, f"GOP {mode}: {len(units)} units")
+    seq = out["sequential"]["stream"]
+    for mode in ("threads", "processes"):
+        check(out[mode]["stream"] == seq,
+              f"GOP {mode} stream != the sequential stream")
+    check(out["sequential"]["launches"] > 0 and out["threads"]["launches"] ==
+          out["sequential"]["launches"],
+          "the GOP path's cross_cells launches: " + json.dumps(
+              {k: v["launches"] for k, v in out.items()}))
+    print("[gop cif] 8 frames in 2 GOPs, streams equal ("
+          f"{len(seq)} bytes): " + ", ".join(
+              f"{k} {v['fps']:.3f} frames/s" for k, v in out.items())
+          + f"; cross_cells launches sequential "
+          f"{out['sequential']['launches']}, threads "
+          f"{out['threads']['launches']} (the processes' are their own)",
+          flush=True)
+    return out["threads"]["launches"]
+
+
+def phase_errdo(rec, seed: int):
+    """KDecoderSim (K = 8, p 0.1) and MultiHypothesisDrift over phase 5's
+    CIF reconstructions (the deblocked luma of 1 IDR + 4 P) and its MB
+    intra maps: the card's states and drift equal the CPU's bit for bit;
+    ms per step on the card."""
+    import torch
+    from h264tpu_torch.models import errdo
+    H, W = 288, 352
+    lumas = [out[0] for _, out in rec.deblocks]
+    intra = [np.asarray(s["mb_intra"], bool).reshape(H // 16, W // 16)
+             for s in rec.syms]
+    check(len(lumas) == 5 and len(intra) == 5, "phase 5's frames")
+    sims = {d: (errdo.KDecoderSim(8, 0.1, H, W, seed=seed, device=d),
+                errdo.MultiHypothesisDrift(0.1, H, W, device=d))
+            for d in ("cuda", "cpu")}
+    step_ms = {"kdecoder": [], "mhyp": []}
+    for y, mb_intra in zip(lumas, intra):
+        for name, sim, arg in (("kdecoder", 0, ()), ("mhyp", 1, (mb_intra,))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sims["cuda"][sim].step(y, *arg)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+            want = sims["cpu"][sim].step(y, *arg)
+            check(np.array_equal(got.cpu().numpy().view(np.int32),
+                                 want.numpy().view(np.int32)),
+                  f"errdo {name}: card drift != CPU drift")
+    check(torch.equal(sims["cuda"][0].sim.cpu(), sims["cpu"][0].sim),
+          "KDecoderSim: card states != CPU states")
+    check(torch.equal(sims["cuda"][1].exp.cpu(), sims["cpu"][1].exp),
+          "MultiHypothesisDrift: card state != CPU state")
+    print(f"[errdo cif] K 8, p 0.1, 5 frames: card == CPU (states, drift bit "
+          f"for bit); mean drift of the last frame "
+          f"{float(got.mean()):.4f}; ms per step on the card (first, then "
+          f"median of the rest): " + json.dumps(
+              {k: [round(v[0], 3), round(float(np.median(v[1:])), 3)]
+               for k, v in step_ms.items()}), flush=True)
+
+
+def phase_legacy(seed: int):
+    """The legacy still-image codec at CIF and 1920x1088, quality 75: the
+    card's stream equals the CPU's, the card's and the CPU's decode of it
+    are equal, with encode and decode ms on the card."""
+    from h264tpu_torch.models import legacy_icodec as LIC
+    for H, W in ((288, 352), (1088, 1920)):
+        y, u, v = blocky_frames(1, H, W, seed)[0]
+        LIC.encode_image(y, u, v, 75)              # warm-up
+        t0 = time.perf_counter()
+        s_gpu = LIC.encode_image(y, u, v, 75)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        s_cpu = LIC.encode_image(y, u, v, 75, device="cpu")
+        check(s_gpu == s_cpu, f"legacy {H}x{W}: card stream != CPU stream")
+        t0 = time.perf_counter()
+        dec = LIC.decode_image(s_gpu)
+        dec_ms = (time.perf_counter() - t0) * 1e3
+        ref = LIC.decode_image(s_gpu, device="cpu")
+        check(all(np.array_equal(a, b) for a, b in zip(dec, ref)),
+              f"legacy {H}x{W}: card decode != CPU decode")
+        mse = float(np.mean((dec[0].astype(np.float64) - y) ** 2))
+        print(f"[legacy {H}x{W}] q75 {len(s_gpu)} bytes, card == CPU, "
+              f"decode equal; PSNR-Y {10 * np.log10(255 ** 2 / mse):.3f}; "
+              f"card encode {enc_ms:.1f} ms, decode {dec_ms:.1f} ms (host "
+              f"entropy included)", flush=True)
+
+
+def phase_mvc(seed: int):
+    """MVC stereo (``MVCStereoCodec``) at CIF in 9 slices, view 1 view 0
+    shifted 4 pels, 1 IDR + 3 P pairs: both views decoded bit-exactly by
+    ``AVCDecoder.decode_mvc``; then QCIF in 3 slices, 3 pairs, card stream
+    == CPU stream."""
+    from h264tpu_torch.avc.mvc import MVCStereoCodec
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    for (H, W, slices), dev in (((288, 352, 9), ("cuda",)),
+                                ((144, 176, 3), ("cuda", "cpu"))):
+        f0 = blocky_frames(4 if H == 288 else 3, H, W, seed)
+        f1 = [tuple(np.roll(pl, -4 if c == 0 else -2, axis=1)
+                    for c, pl in enumerate(fr)) for fr in f0]
+        p = AVCParams(width=W, height=H, qp=AVC_QP, num_ref_frames=2)
+        out = {}
+        for d in dev:
+            t0 = time.perf_counter()
+            out[d] = MVCStereoCodec(p, search_range=8, n_slices=slices,
+                                    device=d).encode_sequence(f0, f1)
+            out[d] += (time.perf_counter() - t0,)
+        res0, res1, stream, enc_s = out["cuda"]
+        if "cpu" in out:
+            check(stream == out["cpu"][2],
+                  f"MVC {H}x{W}: card stream != CPU stream")
+        t0 = time.perf_counter()
+        views = AVCDecoder().decode_mvc(stream)
+        dec_s = time.perf_counter() - t0
+        for v, (dec, res) in enumerate(zip(views, (res0, res1))):
+            check(len(dec) == len(f0), f"MVC {H}x{W}: view {v} frame count")
+            for i, (planes, r) in enumerate(zip(dec, res)):
+                check(all(np.array_equal(a, b)
+                          for a, b in zip(planes, r.recon)),
+                      f"MVC {H}x{W}: view {v} frame {i} != encoder recon")
+        print(f"[mvc {H}x{W}] {len(f0)} pairs in {slices} slices: view 0 bits "
+              f"{[r.bits for r in res0]}, view 1 bits "
+              f"{[r.bits for r in res1]}; both views decoded bit-exactly in "
+              f"{dec_s:.3f} s; card encode {enc_s:.3f} s"
+              + ("; card stream == CPU stream" if "cpu" in out else ""),
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1871,19 +2137,29 @@ def main(argv=None) -> int:
     timed("fractal qcif options card vs cpu",
           phase_fractal_options_card_vs_cpu, args.seed)
     timed("metrics", phase_metrics, args.seed)
+    timed("fvc native vs twin", phase_fvc_native_vs_twin, args.seed)
+    launches_gop = timed("gop-parallel fractal cif", phase_gop_parallel_cif,
+                         args.seed)
+    timed("errdo", phase_errdo, rec_cif, args.seed)
+    timed("legacy still-image codec", phase_legacy, args.seed)
+    timed("mvc stereo", phase_mvc, args.seed)
+    # (record case, kernel case of phase 2 at that path's shapes, launches
+    # of the path); the GOP workers run the CIF main path's shapes
+    paths = (("cif_luma", "cif_luma", launches["cross_cells"]),
+             ("1080p_luma", "1080p_luma", launches_1080p),
+             ("cif_luma_views3", "cif_luma_views3", launches_views),
+             ("cif_luma_gop", "cif_luma", launches_gop))
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",
         "replaces": "h264tpu/ops/fractal.py:338",
         "launches": n_launch,
         "max_abs_err": max(r["max_abs_err"] for r in krows.values()),
-        "ms": krows[case]["ms"], "plain_ms": krows[case]["plain_ms"],
-        "bound_ms": krows[case]["bound_ms"],
-        "bound_by": krows[case]["bound_by"], "library_ms": None,
-        "wrapper_call_ms": krows[case]["wrapper_call_ms"]}
-        for case, n_launch in (("cif_luma", launches["cross_cells"]),
-                               ("1080p_luma", launches_1080p),
-                               ("cif_luma_views3", launches_views))]}
+        "ms": krows[kcase]["ms"], "plain_ms": krows[kcase]["plain_ms"],
+        "bound_ms": krows[kcase]["bound_ms"],
+        "bound_by": krows[kcase]["bound_by"], "library_ms": None,
+        "wrapper_call_ms": krows[kcase]["wrapper_call_ms"]}
+        for case, kcase, n_launch in paths]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,8 @@ weighting is applied to the reference planes by the caller.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -1414,23 +1416,48 @@ def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
                 band_h=sb_h * 16, wp_c=wp_c)
 
 
+_CAPTURE = threading.local()
+
+
+def _capture(step, t_dev):
+    """Capture ``step(t_dev)`` into a CUDA graph; returns (graph, output).
+
+    Threads that share the card (GOP workers) may launch, allocate and
+    synchronize while one of them captures: the capture runs in
+    thread-local mode, which restricts only the capturing thread, on a
+    side stream of the capturing thread's own."""
+    dev = t_dev.device
+    side = getattr(_CAPTURE, "stream", None)
+    if side is None or side.device != dev:
+        side = _CAPTURE.stream = torch.cuda.Stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = step(t_dev)
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    return graph, out
+
+
 def _scan(step, T: int, dev, marks=None) -> list:
     """Run the ``T`` wavefront steps of a decision scan: ``step(t)`` with a
     0-dim int64 step index on the device, returning a dict of per-lane
     symbols.  On CUDA every step launches the same kernels on the same
     shapes: step 0 runs eagerly (so every constant table is on the card),
-    one step is captured into a CUDA graph and replayed for the others.
-    ``marks``: a list; on CUDA, CUDA events are appended after the eager
-    first step and after the capture."""
+    one step is captured into a CUDA graph (:func:`_capture`) and replayed
+    for the others.  ``marks``: a list; on CUDA, CUDA events are appended
+    after the eager first step and after the capture."""
     t_dev = torch.zeros((), dtype=torch.int64, device=dev)
     ys = [step(t_dev)]
     if dev.type == "cuda" and T > 1:
         if marks is not None:
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = step(t_dev)
+        graph, out = _capture(step, t_dev)
         if marks is not None:
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()

@@ -23,8 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
-import subprocess
 
 import numpy as np
 
@@ -38,7 +36,6 @@ from . import tables as TBL
 from .params import AVCParams, write_slice_header, SLICE_P
 
 SOURCE = kernels.SRC_DIR / "avc_native.cpp"
-GXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -53,18 +50,7 @@ def library_path():
 def build() -> str:
     """Compile the library if it is missing; returns the compiler's log
     ("" when it was already built).  Raises when the build fails."""
-    out = library_path()
-    if out.exists():
-        return ""
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([kernels.gxx_path(), *GXX_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return proc.stdout + proc.stderr
+    return kernels.build_host(SOURCE, library_path())
 
 
 def _load():

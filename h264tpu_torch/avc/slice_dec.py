@@ -16,9 +16,12 @@ the dec_statistics.c analogue).  The JM counterpart is
 ``JM/ldecod/src/{image.c:809 decode_one_frame, mb_read.c:1139,
 read_comp_cavlc.c, mb_prediction.c, mc_direct.c}``.
 
+MVC 2-view stereo (``decode_mvc``): view 1's coded-slice extensions with
+the co-temporal base picture as an inter-view reference.
+
 Raise ``NotImplementedError``: Intra 8x8 (I_NxN with
-transform_size_8x8_flag, CAVLC or CABAC), FMO, MVC, error concealment,
-fields/MBAFF, 4:2:2/4:4:4/>8-bit.
+transform_size_8x8_flag, CAVLC or CABAC), FMO, I_PCM under CABAC (as in
+the reference), error concealment, fields/MBAFF, 4:2:2/4:4:4/>8-bit.
 
 The port's own copy of ``h264tpu/avc/slice_dec.py``; it imports nothing
 from ``h264tpu``.
@@ -239,6 +242,8 @@ class AVCDecoder:
         self._prev_poc_lsb = 0
         self._prev_poc_msb = 0
         self.trace = [] if trace else None
+        # MVC view 1: the co-temporal base picture (``decode_mvc``)
+        self._inter_view_entry = None
 
     def _tr(self, r, name, value):
         if self.trace is not None:
@@ -335,6 +340,71 @@ class AVCDecoder:
         if fr is not None:
             out.append(fr)
         return self._display_order(out, poc_reorder)
+
+    def decode_mvc(self, stream: bytes):
+        """Decode a 2-view MVC stereo stream (base AVC NALs + subset
+        SPS type 15 + coded-slice-extension type 20 with
+        nal_unit_header_mvc_extension).  View-1 pictures may predict
+        from the co-temporal base picture via the appended inter-view
+        reference (H.8.2.1).  Returns (view0_frames, view1_frames)."""
+        from .mvc import parse_subset_sps, NAL_SUBSET_SPS, NAL_SLICE_EXT
+        out0 = []
+        self._order = []
+        self._idr_epoch = 0
+        self._pic = None
+        child = AVCDecoder(trace=self.trace)
+        child.sps = self.sps
+        child.pps = self.pps
+        child_out = []
+        child._order = []
+        child._idr_epoch = 0
+        child._pic = None
+        base_done = 0
+        for n in annexb_parse(stream):
+            if n.nal_type == NAL_SPS:
+                s = parse_sps(n.rbsp)
+                self.sps[s["sps_id"]] = s
+            elif n.nal_type == NAL_SUBSET_SPS:
+                parse_subset_sps(n.rbsp)     # structural validation
+            elif n.nal_type == NAL_PPS:
+                p = parse_pps(n.rbsp)
+                self.pps[p["pps_id"]] = p
+            elif n.nal_type in (NAL_IDR, NAL_SLICE):
+                fr = self._decode_slice(n.rbsp, n.nal_type == NAL_IDR,
+                                        n.ref_idc)
+                if fr is not None:
+                    out0.append(fr)
+            elif n.nal_type == NAL_SLICE_EXT:
+                # the co-temporal base picture must be complete: flush it
+                fr = self._finish_picture()
+                if fr is not None:
+                    out0.append(fr)
+                if len(out0) > base_done:
+                    base_done = len(out0)
+                    child._inter_view_entry = self._inter_view(
+                        out0[-1], base_done)
+                fr1 = child._decode_slice(n.rbsp[3:], False, n.ref_idc)
+                if fr1 is not None:
+                    child_out.append(fr1)
+        fr = self._finish_picture()
+        if fr is not None:
+            out0.append(fr)
+        fr1 = child._finish_picture()
+        if fr1 is not None:
+            child_out.append(fr1)
+        return out0, child_out
+
+    def _inter_view(self, base_fr, n_base: int) -> dict:
+        """The DPB-style entry of a base-view picture as view 1's
+        inter-view reference: int64 RefPlanes, no motion (mv 0, ref -1 on
+        the 4x4 grid)."""
+        h, w = self.sps[0]["height"], self.sps[0]["width"]
+        planes = tuple(pl.astype(np.int64) for pl in base_fr)
+        return dict(fn=-1, poc=-1000 - n_base, frame=base_fr,
+                    rp=INTER.RefPlanes(*planes),
+                    mv=np.zeros((h // 4, w // 4, 2), np.int64),
+                    ref=np.full((h // 4, w // 4), -1, np.int64),
+                    ref_poc=None, long=False, lt_idx=-1)
 
     def _display_order(self, out, poc_reorder):
         """Ascending-POC display reorder per 8.2.1; POC resets at each
@@ -700,6 +770,11 @@ class AVCDecoder:
         lterm = sorted([e for e in self.dpb if e.get("long")],
                        key=lambda e: e["lt_idx"])
         entries = sorted(short, key=lambda e: -picnum(e["fn"])) + lterm
+        iv = self._inter_view_entry
+        if iv is not None and slice_type == 0:
+            # MVC inter-view reference: appended AFTER the temporal refs
+            # in RefPicList0 (spec H.8.2.1)
+            entries = entries + [iv]
         refs1 = []
         col = None
         if slice_type == 1:
@@ -724,7 +799,13 @@ class AVCDecoder:
             lst = list(lst)
             for op, d in ops:
                 if op in (4, 5):            # MVC inter-view ref (H.8.2.2.3)
-                    raise NotImplementedError("MVC is not ported")
+                    iv2 = self._inter_view_entry
+                    assert iv2 is not None, "inter-view op without ref"
+                    if iv2 in lst:
+                        lst.remove(iv2)
+                    lst.insert(idx, iv2)
+                    idx += 1
+                    continue
                 if op == 2:                 # long-term: LongTermPicNum
                     match = [e for e in lst
                              if e.get("long") and e.get("lt_idx") == d]

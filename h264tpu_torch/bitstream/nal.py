@@ -14,7 +14,8 @@ non-conformant — it writes fractal TRANS_NODE syntax into its slices,
 against the spec syntax, and the classic-inter path can migrate its payloads
 to real slice NALUs without touching this layer.
 
-Host-side work only; the emulation-prevention scan is the Python path.
+Host-side work only; emulation prevention runs in C++
+(``entropy/native.py``), with the Python scans kept as its twins.
 
 The port's own copy of ``h264tpu/bitstream/nal.py``; it imports nothing from ``h264tpu``.
 """
@@ -26,6 +27,7 @@ import dataclasses
 import numpy as np
 
 from ..entropy.bitio import BitWriter, BitReader
+from ..entropy import native as FN
 
 # NAL unit types
 NAL_SLICE = 1          # (classic-path roadmap: real coded slices)
@@ -49,6 +51,18 @@ class NALU:
 # ---------------------------------------------------------------------------
 
 def ep_insert(rbsp: bytes) -> bytes:
+    """RBSP -> EBSP through the native scan (its twin:
+    :func:`ep_insert_python`)."""
+    return FN.ep_insert(rbsp)
+
+
+def ep_strip(ebsp: bytes) -> bytes:
+    """EBSP -> RBSP through the native scan (its twin:
+    :func:`ep_strip_python`)."""
+    return FN.ep_strip(ebsp)
+
+
+def ep_insert_python(rbsp: bytes) -> bytes:
     out = bytearray()
     zeros = 0
     for b in rbsp:
@@ -60,7 +74,7 @@ def ep_insert(rbsp: bytes) -> bytes:
     return bytes(out)
 
 
-def ep_strip(ebsp: bytes) -> bytes:
+def ep_strip_python(ebsp: bytes) -> bytes:
     out = bytearray()
     zeros = 0
     for b in ebsp:

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 
 from .bitio import BitWriter, BitReader
-from . import cabac_eng, cavlc
+from . import native
 from ..ops.fractal import SHAPES
 
 MAGIC = 0x46564331  # 'FVC1'
@@ -43,11 +43,15 @@ ENTROPY_EG = 2      # Exp-Golomb coefficient sets
 
 
 def write_residual(w: BitWriter, zz: np.ndarray, cy: int, cx: int, mode: int):
-    """Levels [cy*cx, 16] of one plane in the stream's entropy mode."""
+    """Levels [cy*cx, 16] of one plane in the stream's entropy mode; CAVLC
+    and CABAC through the native coders (twins: ``cavlc.encode_plane``,
+    ``cabac_eng.encode_plane``)."""
     if mode == ENTROPY_CAVLC:
-        cavlc.encode_plane(np.asarray(zz), cy, cx, w)
+        codes, lens = native.cavlc_encode_plane(np.asarray(zz), cy, cx)
+        mask = lens > 0
+        w.raw(codes[mask], lens[mask])
     elif mode == ENTROPY_CABAC:
-        payload = cabac_eng.encode_plane(np.asarray(zz), cy, cx)
+        payload = native.cabac_encode_plane(np.asarray(zz), cy, cx)
         pad = (-w.bit_length()) % 8
         if pad:
             w.u(0, pad)
@@ -60,13 +64,15 @@ def write_residual(w: BitWriter, zz: np.ndarray, cy: int, cx: int, mode: int):
 
 def read_residual(r: BitReader, cy: int, cx: int, mode: int) -> np.ndarray:
     if mode == ENTROPY_CAVLC:
-        return cavlc.decode_plane(r, cy, cx)
+        zz, r.pos = native.cavlc_decode_plane(r.data, len(r._bits), r.pos,
+                                              cy, cx)
+        return zz
     if mode == ENTROPY_CABAC:
         r.byte_align()
         n = r.u(32)
         payload = r.data[r.pos // 8:r.pos // 8 + n]
         r.pos += 8 * n
-        return cabac_eng.decode_plane(payload, cy, cx)
+        return native.cabac_decode_plane(payload, cy, cx)
     return read_coeff_set(r, cy * cx)
 
 
@@ -210,6 +216,14 @@ def read_intra_modes(r: BitReader, cy: int, cx: int) -> np.ndarray:
     use = r.u_array(cy * cx, 1).astype(bool).reshape(cy, cx)
     n_rem = int((~use).sum())
     rem = r.u_array(n_rem, 3) if n_rem else np.zeros(0, np.int64)
+    return native.resolve_intra_modes(use, rem, cy, cx)
+
+
+def resolve_intra_modes_python(use: np.ndarray, rem: np.ndarray, cy: int,
+                               cx: int) -> np.ndarray:
+    """The Python twin of ``native.resolve_intra_modes``: each block's mode
+    is its MPM (the smaller of left and top, 2 off the plane) where ``use``
+    is set, else the next of ``rem`` skipping the MPM."""
     modes = np.zeros((cy, cx), dtype=np.int64)
     it = iter(rem.tolist())
     for y in range(cy):

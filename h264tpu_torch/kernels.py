@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C launch function.  At first use it
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``h264tpu_torch/_build/`` (named by a hash of the source, so an edited source
 is rebuilt) and loaded with ``ctypes``.  Importing this module builds nothing.
-The native host stages (``csrc/avc_native.cpp``) build the same way with
-``g++`` (:func:`gxx_path`), through ``avc/native.py``.
+The native host stages (``csrc/avc_native.cpp`` through ``avc/native.py``,
+``csrc/fvc_native.cpp`` through ``entropy/native.py``) build the same way
+with ``g++`` (:func:`build_host`).  Builds are serialised by a lock within a
+process and land through a temporary file and ``os.replace``, so threads and
+spawned processes that build at once each load a whole library.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -32,6 +36,8 @@ _SIGNATURES = {
                                            _I, _P]),
 }
 _LIBS: dict = {}
+_BUILD_LOCK = threading.Lock()
+GXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 
 
 def nvcc_path() -> str:
@@ -51,7 +57,25 @@ def gxx_path() -> str:
     if found:
         return found
     raise RuntimeError("g++ not found: a host C++ compiler is needed to build "
-                       "h264tpu_torch/csrc/avc_native.cpp")
+                       "the native host stages in h264tpu_torch/csrc")
+
+
+def build_host(source: Path, out: Path) -> str:
+    """Compile the host library ``out`` from ``source`` with ``g++`` if it is
+    missing; returns the compiler's log ("" when it was already built).
+    Raises with the log when the build fails."""
+    with _BUILD_LOCK:
+        if out.exists():
+            return ""
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([gxx_path(), *GXX_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"g++ failed to build {source.name}:\n"
+                               + proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+        return proc.stdout + proc.stderr
 
 
 def library_path(name: str) -> Path:
@@ -62,25 +86,28 @@ def library_path(name: str) -> Path:
 def build_all(names=SOURCES) -> dict:
     """Compile every missing library, one ``nvcc`` per source, all started
     together.  Returns {name: compiler log} for the sources built now."""
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(name)
-        else:
-            os.replace(tmp, library_path(name))
-            library_path(name).with_suffix(".log").write_text(logs[name])
+    with _BUILD_LOCK:
+        todo = [n for n in names if not library_path(n).exists()]
+        if not todo:
+            return {}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for name in todo:
+            tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(SRC_DIR / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs, failed = {}, []
+        for name, (tmp, proc) in procs.items():
+            logs[name] = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(name)
+            else:
+                os.replace(tmp, library_path(name))
+                library_path(name).with_suffix(".log").write_text(logs[name])
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))

@@ -21,6 +21,7 @@ bits and the same winners as the reference.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -259,11 +260,13 @@ def cross_cell_sums(org: torch.Tensor, refs_pad: torch.Tensor,
     out = torch.empty((R, n_off, H // 4, W // 4), dtype=torch.int32,
                       device=org.device)
     kernels.launch_cross_cells(org, refs_pad, slots, out, sr)
-    cross_cell_sums.launches += 1
+    with _LAUNCH_LOCK:                 # GOP worker threads launch too
+        cross_cell_sums.launches += 1
     return out
 
 
 cross_cell_sums.launches = 0
+_LAUNCH_LOCK = threading.Lock()
 
 
 # ---------------------------------------------------------------------------

@@ -237,3 +237,46 @@ def test_params_from_dict_round_trip():
     assert dataclasses.asdict(tp) == dataclasses.asdict(jp)
     with pytest.raises(ValueError):
         params_from_dict(dict(dataclasses.asdict(jp), bogus=1))
+
+
+def test_mvc_stream_equals_jax(monkeypatch):
+    """``MVCStereoCodec``: three stereo pairs (the third view-1 picture
+    carries the inter-view reorder) byte-identical with the JAX package's,
+    both views reproduced by both decoders' ``decode_mvc``.
+
+    It shares the 64x48 two-reference configuration's JAX compile with the
+    fixture above.  The JAX view-1 call omits ``encode_frame``'s last
+    argument, ``wp_c``, whose default is None; ``jax.jit`` keys that call
+    apart from the base view's, which passes None, and compiles the P
+    graph again (~50 s on the CPU).  The shim passes the default
+    explicitly: the same function with the same arguments."""
+    from h264tpu.avc.mvc import MVCStereoCodec as JMVC
+    from h264tpu.avc.slice_dec import AVCDecoder as JDecoder
+    from h264tpu_torch.avc.mvc import MVCStereoCodec
+
+    orig = TPUAVCCodec._encode_fn
+
+    def encode_fn(self, intra_only):
+        fn = orig(self, intra_only)
+        return lambda *a: fn(*a, None) if len(a) == 9 else fn(*a)
+
+    monkeypatch.setattr(TPUAVCCodec, "_encode_fn", encode_fn)
+    H, W, _qp, SR, S, R, _row = CONFIGS["64x48_qp36_2refs"]
+    f0 = smooth_frames(3, H, W, seed=5)
+    f1 = [tuple(np.roll(pl, -2, axis=1) for pl in fr) for fr in f0]
+    jp = JParams(width=W, height=H, qp=30, num_ref_frames=R)
+    j0, j1, j_stream = JMVC(jp, search_range=SR, n_slices=S).encode_sequence(
+        f0, f1)
+    t0, t1, t_stream = MVCStereoCodec(
+        params_from_dict(dataclasses.asdict(jp)), search_range=SR,
+        n_slices=S, device="cpu").encode_sequence(f0, f1)
+    assert t_stream == j_stream
+    for jr, tr in zip(j0 + j1, t0 + t1):
+        assert (tr.bits, tr.psnr_y) == (jr.bits, jr.psnr_y)
+    for views in (AVCDecoder().decode_mvc(j_stream),
+                  JDecoder().decode_mvc(t_stream)):
+        for dec, res in zip(views, (t0, t1)):
+            assert len(dec) == 3
+            for planes, r in zip(dec, res):
+                for a, b in zip(planes, r.recon):
+                    np.testing.assert_array_equal(a, b)

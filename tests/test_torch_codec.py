@@ -113,7 +113,9 @@ def test_config_from_dict_round_trip():
 def test_import_and_encode_load_no_jax():
     """Importing the port and encoding on the CPU — the IPPP path and every
     option (classic inter, rate control, Annex-B, RTP, CABAC, Exp-Golomb,
-    region and 3-view coding) — loads neither jax nor h264tpu."""
+    region and 3-view coding), GOP-parallel encoding in threads, the
+    loss-aware drift models, the legacy still-image codec, the Huffman
+    fractal stream and MVC stereo — loads neither jax nor h264tpu."""
     code = (
         "import dataclasses, sys, numpy as np\n"
         "from h264tpu_torch.utils.config import CodecConfig, FractalConfig\n"
@@ -146,6 +148,32 @@ def test_import_and_encode_load_no_jax():
         "for v in range(3):\n"
         "    check(res[v], dec[v])\n"
         "assert frame_metrics(f[0], dec[0][0], device='cpu')['psnr_y'] > 10\n"
+        "import functools\n"
+        "from h264tpu_torch.models.gop_parallel import GOPEncoder\n"
+        "from h264tpu_torch.models import gop_workers, errdo\n"
+        "from h264tpu_torch.models import legacy_icodec as LIC\n"
+        "from h264tpu_torch.entropy import fractal_huffman as FH\n"
+        "from h264tpu_torch.avc.mvc import MVCStereoCodec\n"
+        "from h264tpu_torch.avc.params import AVCParams\n"
+        "from h264tpu_torch.avc.slice_dec import AVCDecoder\n"
+        "fac = functools.partial(gop_workers.fractal_factory, 32, 32, 30,\n"
+        "                        search_range=2, device='cpu')\n"
+        "one = GOPEncoder(fac, 2).encode(f)[1]\n"
+        "assert GOPEncoder(fac, 2).encode(f, workers=2)[1] == one\n"
+        "sim = errdo.KDecoderSim(4, 0.2, 32, 32, device='cpu')\n"
+        "mh = errdo.MultiHypothesisDrift(0.2, 32, 32, device='cpu')\n"
+        "for y, _, _ in f:\n"
+        "    assert sim.step(y).shape == mh.step(y).shape == (2, 2)\n"
+        "s = LIC.encode_image(*f[0], device='cpu')\n"
+        "assert LIC.decode_image(s, device='cpu')[0].shape == (32, 32)\n"
+        "maps = {k: np.zeros((8, 8), np.int64) for k in\n"
+        "        ('shape', 'a', 'beta', 'dx', 'dy', 'ref')}\n"
+        "assert FH.decode_maps(FH.encode_maps(maps, 2), 32, 32, 2)\n"
+        "p = AVCParams(width=32, height=32, qp=30, num_ref_frames=2)\n"
+        "r0, r1, s = MVCStereoCodec(p, search_range=2, device='cpu')"
+        ".encode_sequence(f, f[::-1])\n"
+        "v0, v1 = AVCDecoder().decode_mvc(s)\n"
+        "check(r1, v1)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'h264tpu' or m.startswith('h264tpu.'))\n"
         "assert not bad, bad\n"

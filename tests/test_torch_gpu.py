@@ -289,3 +289,118 @@ def test_avc_option_card_stream_equals_cpu_stream(name):
     for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fvc_native_coders_equal_twins_on_card_levels():
+    """The native FVC coders against their Python twins on the levels and
+    intra modes of a CIF I and P frame encoded on the card."""
+    _need_card()
+    from h264tpu_torch.entropy import cabac_eng, cavlc, native as FN
+    from h264tpu_torch.entropy import fractal_syntax as FS
+    from h264tpu_torch.entropy.bitio import BitReader, BitWriter
+    from h264tpu_torch.bitstream import nal
+    H, W = 288, 352
+    frames = _blocky_frames(2, H, W)
+    codec = FractalCodec(CodecConfig(width=W, height=H, qp=24, intra_period=0),
+                         device="cuda")
+    i_pend = codec.dispatch_frame(frames[0], None, 0)
+    i_res, _ = codec.finalize_frame(i_pend)
+    p_pend = codec.dispatch_frame(frames[1], i_res.recon_dev, 1)
+    _, payload = codec.finalize_frame(p_pend)
+    for pend in (i_pend, p_pend):
+        for i, (ph, pw) in enumerate(pend["dims"]):
+            cy, cx = ph // 4, pw // 4
+            zz = pend["host"][f"{i}_zz"].numpy()
+            w = BitWriter()
+            cavlc.encode_plane(zz, cy, cx, w)
+            codes, lens = FN.cavlc_encode_plane(zz, cy, cx)
+            wn = BitWriter()
+            wn.raw(codes[lens > 0], lens[lens > 0])
+            data = w.to_bytes()
+            assert wn.to_bytes() == data
+            out, pos = FN.cavlc_decode_plane(data, 8 * len(data), 0, cy, cx)
+            r = BitReader(data)
+            np.testing.assert_array_equal(out, cavlc.decode_plane(r, cy, cx))
+            assert pos == r.pos
+            cab = FN.cabac_encode_plane(zz, cy, cx)
+            assert cab == cabac_eng.encode_plane(zz, cy, cx)
+            np.testing.assert_array_equal(FN.cabac_decode_plane(cab, cy, cx),
+                                          cabac_eng.decode_plane(cab, cy, cx))
+            if pend is i_pend:
+                modes = pend["host"][f"{i}_modes"].numpy()
+                w = BitWriter()
+                FS.write_intra_modes(w, modes)
+                np.testing.assert_array_equal(
+                    FS.read_intra_modes(BitReader(w.to_bytes()), cy, cx),
+                    modes)
+    ebsp = nal.ep_insert(payload)
+    assert ebsp == nal.ep_insert_python(payload)
+    assert nal.ep_strip(ebsp) == nal.ep_strip_python(ebsp) == payload
+
+
+@pytest.mark.gpu
+def test_avc_gop_threads_on_the_card_equal_sequential():
+    """Two GOP workers in threads share the card while each captures its
+    decision scans' CUDA graphs: the stream equals the sequential one's
+    and the CPU's."""
+    _need_card()
+    import functools
+    from h264tpu_torch.models.gop_parallel import GOPEncoder
+    from h264tpu_torch.models.gop_workers import device_avc_factory
+    frames = _blocky_frames(6, 144, 176)
+    out = {}
+    for dev, workers in (("cuda", 1), ("cuda", 2), ("cpu", 1)):
+        fac = functools.partial(device_avc_factory, 176, 144, 28,
+                                n_slices=3, device=dev)
+        out[dev, workers] = GOPEncoder(fac, 3).encode(
+            frames, workers=workers)[1]
+    assert out["cuda", 2] == out["cuda", 1] == out["cpu", 1]
+
+
+@pytest.mark.gpu
+def test_mvc_card_stream_equals_cpu_stream():
+    """MVC stereo at QCIF in 3 slices, 3 pairs (the third view-1 picture
+    modifies its list): the card's stream equals the CPU's and
+    ``decode_mvc`` reproduces both views."""
+    _need_card()
+    from h264tpu_torch.avc.mvc import MVCStereoCodec
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    f0 = _blocky_frames(3, 144, 176)
+    f1 = [tuple(np.roll(pl, -4, axis=1) for pl in fr) for fr in f0]
+    p = AVCParams(width=176, height=144, qp=28, num_ref_frames=2)
+    out = {dev: MVCStereoCodec(p, search_range=8, n_slices=3,
+                               device=dev).encode_sequence(f0, f1)
+           for dev in ("cuda", "cpu")}
+    res0, res1, stream = out["cuda"]
+    assert stream == out["cpu"][2]
+    for dec, res in zip(AVCDecoder().decode_mvc(stream), (res0, res1)):
+        for planes, r in zip(dec, res):
+            for a, b in zip(planes, r.recon):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_errdo_and_legacy_card_equal_cpu():
+    """KDecoderSim and MultiHypothesisDrift (K = 8) and the legacy codec on
+    the card give the CPU's states, bit-equal drift and streams."""
+    _need_card()
+    from h264tpu_torch.models import errdo, legacy_icodec as LIC
+    frames = _blocky_frames(4, 144, 176)
+    sims = {d: (errdo.KDecoderSim(8, 0.2, 144, 176, seed=3, device=d),
+                errdo.MultiHypothesisDrift(0.2, 144, 176, device=d))
+            for d in ("cuda", "cpu")}
+    for y, _, _ in frames:
+        got = [s.step(y).cpu().numpy().view(np.int32) for s in sims["cuda"]]
+        want = [s.step(y).numpy().view(np.int32) for s in sims["cpu"]]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(sims["cuda"][0].sim.cpu().numpy(),
+                                  sims["cpu"][0].sim.numpy())
+    y, u, v = frames[0]
+    s_gpu = LIC.encode_image(y, u, v, quality=75)
+    assert s_gpu == LIC.encode_image(y, u, v, quality=75, device="cpu")
+    for a, b in zip(LIC.decode_image(s_gpu),
+                    LIC.decode_image(s_gpu, device="cpu")):
+        np.testing.assert_array_equal(a, b)

@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero before the result line:
 2. every kernel against its plain PyTorch version on the card (exact int32
    equality) at the shapes of the main path (CIF luma and chroma, 1080p
    luma, CIF luma and chroma with the 3-view side views' eight reference
-   planes) and
+   planes, the row tiles of the sharded step with real halo rows: CIF luma
+   and chroma over 9 tiles, 1080p luma over 2) and
    of the search's other options (search modes 1-3, SR 16, one reference
    plane, ragged tiles); each case reports the kernel's device
    time per launch (torch.profiler kernel events) and, apart from it, the
@@ -124,7 +125,24 @@ Phases, in order; any failure exits non-zero before the result line:
    stream, card decode == CPU decode, encode and decode ms;
 28. MVC stereo at CIF in 9 slices (view 1 view 0 shifted 4 pels, 1 IDR + 3
    P pairs), both views decoded bit-exactly by ``decode_mvc``; QCIF in 3
-   slices, card stream == CPU stream.
+   slices, card stream == CPU stream;
+29. the fractal codec over (1, 3) and (1, 9) meshes at phase 3's CIF
+   configuration with ``tile_rows=9`` (1 I + 3 P) and over a (1, 2) mesh
+   at 1920x1088 with ``tile_rows=2`` (1 I + 1 P): every stream equal to the
+   unsharded one at the same ``tile_rows``, decoded bit-exactly; P
+   intervals, one sharded P frame's stages, and the cross_cells launches
+   (3 planes x tiles per P frame);
+30. ``DeviceAVCCodec`` over 3- and 9-slot "slice" meshes at phase 5's CIF
+   settings, 1 IDR + 2 P, and phase 7's hierarchical-B CABAC over 3 slots
+   (5 frames): streams equal to the unsharded ones, decoded bit-exactly; P
+   fps;
+31. the port's ``parallel.dryrun.dryrun_multichip(8)``, stages 1-4;
+32. phase 5's CIF stream with one slice NAL lost, of the IDR and of a P
+   picture: the port's decoder conceals 44 MBs (2 MB rows of 22); PSNR-Y
+   of the pictures against the encoder's reconstruction.
+
+Every mesh puts slot i on card ``i % torch.cuda.device_count()`` and prints
+how many distinct cards it spans.
 
 Stage times are spans between CUDA events that the codec itself records
 (``dispatch_frame(marks=)``, ``encode_region_frame(marks=)``).
@@ -139,6 +157,7 @@ CIF phase's).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -303,15 +322,27 @@ KERNEL_CASES = (
     ("cif_luma_r1", 288, 352, 7, 1, 0),
     ("odd_sr4_r8", 72, 88, 4, 8, 0),
     ("ragged_sr2_r1", 36, 44, 2, 1, 0),
+    # a row tile of the sharded step: real halo rows above and below
+    ("cif_luma_tiled9", 32, 352, 7, 4, 0),
+    ("cif_chroma_tiled9", 16, 176, 7, 4, 0),
+    ("1080p_luma_tiled2", 544, 1920, 7, 4, 0),
 )
+# the cases whose window rows are a tile's halo (the columns stay zero)
+HALO_CASES = ("cif_luma_tiled9", "cif_chroma_tiled9", "1080p_luma_tiled2")
 
 
-def cross_cells_inputs(rng, H: int, W: int, sr: int, R: int):
-    """(org [H, W], refs_pad [R, H+2sr, W+2sr]) int32 pixels on the card."""
+def cross_cells_inputs(rng, H: int, W: int, sr: int, R: int,
+                       halo: bool = False):
+    """(org [H, W], refs_pad [R, H+2sr, W+2sr]) int32 pixels on the card;
+    with ``halo`` the sr rows above and below are pixels too, as a row
+    tile's window holds its neighbours' rows."""
     import torch
     org = torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.int32)
-    refs = torch.as_tensor(rng.integers(0, 256, (R, H, W)), dtype=torch.int32)
-    refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr))
+    rows = H + 2 * sr if halo else H
+    refs = torch.as_tensor(rng.integers(0, 256, (R, rows, W)),
+                           dtype=torch.int32)
+    refs_pad = torch.nn.functional.pad(
+        refs, (sr, sr) if halo else (sr, sr, sr, sr))
     return org.cuda(), refs_pad.contiguous().cuda()
 
 
@@ -335,7 +366,8 @@ def phase_kernels(seed: int):
     rng = np.random.default_rng(seed + 1)
     rows = {}
     for name, H, W, sr, R, mode in KERNEL_CASES:
-        org, refs_pad = cross_cells_inputs(rng, H, W, sr, R)
+        org, refs_pad = cross_cells_inputs(rng, H, W, sr, R,
+                                           name in HALO_CASES)
         offs_np = F.candidate_offsets(sr, mode)
         offs, slots = F.offset_tables(offs_np, sr, "cuda")
         got = F.cross_cell_sums(org, refs_pad, offs, sr, slots)
@@ -818,7 +850,7 @@ def phase_avc_cif(seed: int, profile_dir=None, trace: bool = False):
     print("[avc cif] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     if not trace:
-        return rec
+        return rec, results, stream
     t0 = time.perf_counter()
     launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
                                    profile_dir)
@@ -828,7 +860,7 @@ def phase_avc_cif(seed: int, profile_dir=None, trace: bool = False):
     print(f"[avc cif] one P frame: {launches} kernel launches, summed kernel "
           f"time {busy} (torch.profiler, {time.perf_counter() - t0:.1f} s "
           f"to trace)", flush=True)
-    return rec
+    return rec, results, stream
 
 
 def phase_avc_card_vs_cpu(seed: int):
@@ -1123,7 +1155,7 @@ def phase_avc_hierb_cif(seed: int, trace: bool = False):
     H, W, n = 288, 352, 9
     frames = smooth_frames(n, H, W, seed)
     codec = b_codec(H, W, 9, "cuda")
-    codec.encode_sequence(frames[:5])                  # warm-up
+    _, warm_stream = codec.encode_sequence(frames[:5])     # warm-up
     torch.cuda.synchronize()
     codec.host_ms = dict(pack=[], deblock=[])
     with HostStageRecorder() as rec:
@@ -1179,6 +1211,7 @@ def phase_avc_hierb_cif(seed: int, trace: bool = False):
         print(f"[avc hierb cif] one B frame: {launches} kernel launches, "
               f"summed kernel time {busy} (torch.profiler, "
               f"{time.perf_counter() - t0:.1f} s to trace)", flush=True)
+    return frames[:5], warm_stream
 
 
 # the QCIF B configurations of the card-vs-CPU phase: hierarchical-B CABAC in
@@ -2074,6 +2107,207 @@ def phase_mvc(seed: int):
               flush=True)
 
 
+def card_mesh(n: int, shape, axes):
+    """A ``parallel.Mesh`` of ``n`` slots over the cards, slot i on card
+    ``i % torch.cuda.device_count()``, with ``shape`` and ``axes``."""
+    import torch
+    from h264tpu_torch.parallel import Mesh
+    count = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % count) for i in range(n)]
+    return Mesh(np.array(devs, dtype=object).reshape(shape), axes)
+
+
+def mesh_note(mesh) -> str:
+    return (f"{mesh.size} slots on {len(mesh.distinct_devices())} distinct "
+            f"card(s)")
+
+
+def sync_s(fn):
+    """(fn's result, host seconds to its return and a synchronise)."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fractal_sharded(seed: int):
+    """The fractal codec over (1, 3) and (1, 9) meshes at phase 3's CIF
+    configuration with tile_rows 9, 1 I + 3 P, and over a (1, 2) mesh at
+    1920x1088 with tile_rows 2, 1 I + 1 P: each stream equal to the
+    unsharded one at the same tile_rows, the CIF one decoded bit-exactly;
+    the P interval of each and the cross_cells launches of each sharded
+    run (3 planes x tiles per P frame).  Returns those launches."""
+    import torch
+    from h264tpu_torch.models.fractal_codec import FractalCodec
+    from h264tpu_torch.ops import fractal as F
+    H, W = 288, 352
+    frames = blocky_frames(4, H, W, seed)
+    cfg = dataclasses.replace(cif_config(H, W), tile_rows=9)
+    one = FractalCodec(cfg, device="cuda")
+    one.encode_sequence(frames[:2])                    # warm-up
+    launches, streams = {}, {}
+    for tiles in (1, 3, 9):
+        mesh = None if tiles == 1 else card_mesh(tiles, (1, tiles),
+                                                 ("gop", "tile"))
+        codec = one if mesh is None else FractalCodec(cfg, mesh=mesh)
+        _, i_s = sync_s(lambda: codec.encode_frame(frames[0], None, 0))
+        F.cross_cell_sums.launches = 0
+        (results, stream), seq_s = sync_s(
+            lambda: codec.encode_sequence(frames))
+        n_launch = F.cross_cell_sums.launches
+        streams[tiles] = stream
+        label = "unsharded" if mesh is None else \
+            f"mesh (1, {tiles}), {mesh_note(mesh)}"
+        print(f"[fractal sharded cif] {label}: 1 I + 3 P {seq_s:.3f} s, "
+              f"P interval {(seq_s - i_s) / 3 * 1e3:.1f} ms "
+              f"((t(1 I + 3 P) - t(1 I)) / 3, synchronised), stream "
+              f"{len(stream)} bytes, cross_cells launches {n_launch}",
+              flush=True)
+        check(n_launch == 3 * tiles * 3,
+              f"the (1, {tiles}) run launched cross_cells {n_launch} times, "
+              f"not {3 * tiles * 3}")
+        check(stream == streams[1], f"the (1, {tiles}) stream differs from "
+              "the unsharded one at tile_rows 9")
+        if mesh is not None:
+            launches[f"cif_tiled{tiles}"] = n_launch
+        if mesh is not None and len(mesh.distinct_devices()) == 1:
+            # CUDA events of one card only: spans across cards do not exist
+            stages = p_frame_stages(codec, frames[1], results[0].recon_dev)
+            print(f"[fractal sharded cif] (1, {tiles}) one P frame by stage, "
+                  "summed over tiles (ms): " + stage_json(stages), flush=True)
+    fractal_decode_check("fractal sharded cif", streams[9], results)
+    print("[fractal sharded cif] the (1, 3) and (1, 9) streams equal the "
+          "unsharded one; decode bit-exact", flush=True)
+
+    H, W = 1088, 1920
+    frames = blocky_frames(2, H, W, seed)
+    cfg = dataclasses.replace(cif_config(H, W), tile_rows=2)
+    mesh = card_mesh(2, (1, 2), ("gop", "tile"))
+    out = {}
+    for label, codec in (("unsharded", FractalCodec(cfg, device="cuda")),
+                         (f"mesh (1, 2), {mesh_note(mesh)}",
+                          FractalCodec(cfg, mesh=mesh))):
+        F.cross_cell_sums.launches = 0
+        (results, stream), seq_s = sync_s(
+            lambda: codec.encode_sequence(frames))
+        out[label] = stream
+        print(f"[fractal sharded 1080p] {label}: 1 I + 1 P {seq_s:.3f} s, "
+              f"P PSNR Y {results[1].psnr_y:.3f}, stream {len(stream)} "
+              f"bytes, cross_cells launches {F.cross_cell_sums.launches}",
+              flush=True)
+    launches["1080p_tiled2"] = F.cross_cell_sums.launches
+    check(launches["1080p_tiled2"] == 3 * 2,
+          f"the 1080p (1, 2) run launched cross_cells "
+          f"{launches['1080p_tiled2']} times, not 6")
+    check(len(set(out.values())) == 1,
+          "the 1080p (1, 2) stream differs from the unsharded one")
+    return launches
+
+
+def phase_avc_sharded(seed: int, hierb_cif):
+    """The conformant encoder over 3- and 9-slot "slice" meshes at the
+    ``bench.py`` AVC settings (CIF, QP 28, SR 8, 1 ref, 9 slices), 1 IDR +
+    2 P, and hierarchical-B CABAC (phase 7's configuration, 5 frames) over
+    3 slots: every stream equal to the unsharded one (phase 7's warm-up
+    encode of the same 5 frames) and decoded bit-exactly; P fps of each."""
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    H, W = 288, 352
+    frames = blocky_frames(3, H, W, seed)
+    base = avc_codec(H, W, 9, "cuda")
+    streams = {}
+    for n in (1, 3, 9):
+        codec = base if n == 1 else DeviceAVCCodec(
+            base.p, intra_period=0, search_range=AVC_SR, n_slices=9,
+            mesh=card_mesh(n, (n,), ("slice",)))
+        _, idr_s = sync_s(lambda: codec.encode_sequence(frames[:1]))
+        (results, stream), seq_s = sync_s(
+            lambda: codec.encode_sequence(frames))
+        streams[n] = stream
+        label = "unsharded" if n == 1 else \
+            f"{n}-slot mesh, {mesh_note(codec.mesh)}"
+        print(f"[avc sharded cif] {label}: 1 IDR + 2 P {seq_s:.3f} s, P "
+              f"{2 / (seq_s - idr_s):.3f} fps ((1 IDR + 2 P) - (1 IDR) "
+              f"runs), stream {len(stream)} bytes", flush=True)
+        check(stream == streams[1],
+              f"the {n}-slot AVC stream differs from the unsharded one")
+    decoded = AVCDecoder().decode(streams[9])
+    for i, (r, planes) in enumerate(zip(results, decoded)):
+        for c in range(3):
+            check(np.array_equal(planes[c], r.recon[c]),
+                  f"sharded AVC frame {i} plane {c} != encoder recon")
+    print("[avc sharded cif] the 3- and 9-slot streams equal the unsharded "
+          "one; decode bit-exact", flush=True)
+
+    frames_b, stream_b = hierb_cif
+    codec = DeviceAVCCodec(b_codec(H, W, 9, "cuda").p, intra_period=0,
+                           search_range=AVC_SR,
+                           n_slices=9, bframes=3, hierarchical=True,
+                           mesh=card_mesh(3, (3,), ("slice",)))
+    (results, stream), seq_s = sync_s(lambda: codec.encode_sequence(frames_b))
+    print(f"[avc sharded hierb cif] 3-slot mesh, {mesh_note(codec.mesh)}: "
+          f"IDR + P + 3 B {seq_s:.3f} s ({5 / seq_s:.3f} fps), stream "
+          f"{len(stream)} bytes", flush=True)
+    check(stream == stream_b, "the 3-slot hier-B stream differs from the "
+          "unsharded one")
+    decode_check("avc sharded hierb cif", stream, results)
+
+
+def phase_dryrun(n: int):
+    """The port's dry run of every sharded path over an n-slot mesh on the
+    card(s)."""
+    from h264tpu_torch.parallel.dryrun import dryrun_multichip, mesh_devices
+    devs = mesh_devices(n)
+    print(f"[dryrun] {n} slots on {len(set(devs))} distinct card(s)",
+          flush=True)
+    out = dryrun_multichip(n)
+    print("[dryrun] " + json.dumps(out), flush=True)
+
+
+def drop_slice_nal(stream: bytes, index: int) -> bytes:
+    """The Annex-B stream without its ``index``-th coded slice NAL."""
+    from h264tpu_torch.bitstream import nal
+    kept, seen = [], 0
+    for u in nal.annexb_parse(stream):
+        if u.nal_type in (nal.NAL_SLICE, nal.NAL_IDR):
+            seen += 1
+            if seen - 1 == index:
+                continue
+        kept.append(u)
+    check(seen > index, f"the stream has no slice NAL {index}")
+    return nal.annexb_write(kept)
+
+
+def phase_concealment(results, stream):
+    """Phase 5's CIF 9-slice stream with one slice NAL lost, of the IDR and
+    then of a P picture: the port's decoder conceals the lost slice's 44
+    MBs (2 MB rows of 22), the pictures before it equal the encoder's
+    reconstruction and the concealed one does not; PSNR-Y of each against
+    it (the pictures after it predict from the concealed one)."""
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    for label, pic in (("IDR", 0), ("P 2", 2)):
+        lossy = drop_slice_nal(stream, pic * 9 + 4)
+        dec = AVCDecoder()
+        decoded, dec_s = sync_s(lambda: dec.decode(lossy))
+        want = [0] * len(results)
+        want[pic] = 44
+        check(dec.concealed_mbs == want, f"{label} slice lost: concealed "
+              f"MBs {dec.concealed_mbs}, not {want}")
+        psnrs = []
+        for i, (r, planes) in enumerate(zip(results, decoded)):
+            mse = ((planes[0].astype(np.float64) - r.recon[0]) ** 2).mean()
+            psnrs.append(99.99 if mse == 0 else
+                         float(10 * np.log10(255.0 ** 2 / mse)))
+            if i <= pic:
+                check((mse == 0) == (i < pic), f"{label} slice lost: "
+                      f"picture {i} against the encoder recon")
+        print(f"[concealment] {label}'s middle slice lost: concealed MBs per "
+              f"picture {dec.concealed_mbs}; PSNR-Y against the encoder "
+              f"recon {[round(x, 3) for x in psnrs]}; decode {dec_s:.3f} s",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2103,8 +2337,8 @@ def main(argv=None) -> int:
                      args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
     timed("fractal qcif card vs cpu", phase_card_vs_cpu, args.seed)
-    rec_cif = timed("avc cif", phase_avc_cif, args.seed, args.profile_dir,
-                    args.trace)
+    rec_cif, avc_cif_results, avc_cif_stream = timed(
+        "avc cif", phase_avc_cif, args.seed, args.profile_dir, args.trace)
     timed("avc qcif card vs cpu", phase_avc_card_vs_cpu, args.seed)
     timed("avc 1080p", phase_avc_1080p, args.seed)
     rec_high = timed("avc high cif", phase_avc_high_cif, args.seed,
@@ -2112,7 +2346,8 @@ def main(argv=None) -> int:
     rec_qcif = timed("avc high qcif card vs cpu", phase_avc_high_card_vs_cpu,
                      args.seed)
     timed("avc high 1080p", phase_avc_high_1080p, args.seed)
-    timed("avc hier-B cabac cif", phase_avc_hierb_cif, args.seed, args.trace)
+    hierb_cif = timed("avc hier-B cabac cif", phase_avc_hierb_cif, args.seed,
+                      args.trace)
     timed("avc qcif B card vs cpu", phase_avc_b_card_vs_cpu, args.seed)
     timed("avc hier-B cabac 1080p", phase_avc_hierb_1080p, args.seed)
     timed("avc cif wp", phase_avc_wp_cif, args.seed)
@@ -2143,12 +2378,22 @@ def main(argv=None) -> int:
     timed("errdo", phase_errdo, rec_cif, args.seed)
     timed("legacy still-image codec", phase_legacy, args.seed)
     timed("mvc stereo", phase_mvc, args.seed)
+    launches_sharded = timed("fractal sharded", phase_fractal_sharded,
+                             args.seed)
+    timed("avc sharded", phase_avc_sharded, args.seed, hierb_cif)
+    timed("dryrun multichip", phase_dryrun, 8)
+    timed("avc concealment", phase_concealment, avc_cif_results,
+          avc_cif_stream)
     # (record case, kernel case of phase 2 at that path's shapes, launches
     # of the path); the GOP workers run the CIF main path's shapes
     paths = (("cif_luma", "cif_luma", launches["cross_cells"]),
              ("1080p_luma", "1080p_luma", launches_1080p),
              ("cif_luma_views3", "cif_luma_views3", launches_views),
-             ("cif_luma_gop", "cif_luma", launches_gop))
+             ("cif_luma_gop", "cif_luma", launches_gop),
+             ("cif_luma_tiled9", "cif_luma_tiled9",
+              launches_sharded["cif_tiled9"]),
+             ("1080p_luma_tiled2", "1080p_luma_tiled2",
+              launches_sharded["1080p_tiled2"]))
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",

@@ -20,9 +20,12 @@ weighted prediction (CAVLC IPPP; ``wp_method`` "dc" or "lms"), quadratic
 rate control (``encode_sequence(rate_control=...)``, with one QP per
 row-band slice in ``rc_mode`` 3), data partitioning (CAVLC IPPP), and B
 pictures (``bframes``: IbbP, or the dyadic hierarchical GOP of 4 with
-``hierarchical=True``) with spatial direct, under CAVLC or CABAC.  A device
-mesh raises ``NotImplementedError``, as do the option pairs
-``TPUAVCCodec`` refuses.
+``hierarchical=True``) with spatial direct, under CAVLC or CABAC, and a
+device mesh (``mesh=``: the row-band slices of every I, P and B picture split
+over the slots of one ``parallel.Mesh`` axis, byte-identical to the unsharded
+stream).  The option pairs ``TPUAVCCodec`` refuses raise
+``NotImplementedError``, as there: WP or basic-unit rate control with a mesh
+among them.
 
 Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 """
@@ -131,7 +134,7 @@ class DeviceAVCCodec:
 
     def __init__(self, p: AVCParams, intra_period: int = 0,
                  search_range: int = 16, n_slices: int = 1, mesh=None,
-                 bframes: int = 0,
+                 mesh_axis: str = "slice", bframes: int = 0,
                  hierarchical: bool = False, sub8x8: bool = False,
                  data_partitioning: bool = False, wp_method: str = "dc",
                  device=None):
@@ -141,10 +144,14 @@ class DeviceAVCCodec:
         IPPP).  ``wp_method``: the explicit-WP estimator when
         ``p.weighted_pred`` — "dc" (DC ratio) or "lms" (least-squares gain
         and offset over host copies of the recent reconstructions).
-        ``device``: None is the CUDA card (raises without one); pass "cpu"
-        for the plain PyTorch path on the host."""
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported")
+        ``mesh``: a ``parallel.Mesh``; each picture's ``n_slices`` slices
+        are split over the slots of its axis ``mesh_axis`` (``n_slices`` a
+        multiple of their count), each slot encoding its bands on its own
+        device (``device_enc.make_sharded_encode``); the stream is
+        byte-identical to the unsharded one.
+        ``device``: None is the CUDA card (raises without one), or the
+        mesh's first slot when a mesh is given; pass "cpu" for the plain
+        PyTorch path on the host."""
         # TPUAVCCodec's own limits
         if wp_method not in ("dc", "lms"):
             raise ValueError(f"wp_method {wp_method!r}")
@@ -178,14 +185,22 @@ class DeviceAVCCodec:
         if p.transform_8x8 and bframes > 0:
             raise NotImplementedError("8x8 transform in the B driver "
                                       "is not wired yet")
-        if p.weighted_pred and (bframes > 0 or p.cabac):
+        if p.weighted_pred and (bframes > 0 or p.cabac
+                                or mesh is not None):
             raise NotImplementedError("device WP is CAVLC-IPPP "
                                       "single-mesh for now")
         if p.slice_groups != 1:
             raise ValueError("the device path has no FMO")
         if p.mb_h % n_slices:
             raise ValueError(f"n_slices {n_slices} must divide {p.mb_h}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            DE.band_slots(mesh, mesh_axis, p.mb_h, n_slices)
+        self.device = resolve_device(
+            device if device is not None or mesh is None
+            else mesh.devices.flat[0])
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._sharded = {}
         self.p = p
         self.intra_period = intra_period
         self.sr = search_range
@@ -199,6 +214,34 @@ class DeviceAVCCodec:
         self._dummy = None
         # host milliseconds per frame of the slice packer and the deblock
         self.host_ms = dict(pack=[], deblock=[])
+
+    def _encode_fn(self, intra_only: bool):
+        """The frame encoder of I or P pictures: ``device_enc.encode_frame``,
+        or its mesh-sharded twin (made once per kind)."""
+        p = self.p
+        kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
+                  intra_only=intra_only, chroma_qp_offset=p.chroma_qp_offset,
+                  transform8=p.transform_8x8, sub8x8=self.sub8x8,
+                  scaling_default=p.scaling_matrix == "default")
+        if self.mesh is None:
+            return lambda *a: DE.encode_frame(*a, **kw)
+        if intra_only not in self._sharded:
+            self._sharded[intra_only] = DE.make_sharded_encode(
+                self.mesh, self.mesh_axis, **kw)
+        return self._sharded[intra_only]
+
+    def _encode_fn_b(self):
+        """The B frame encoder: ``device_enc.encode_frame_b`` or its
+        mesh-sharded twin."""
+        p = self.p
+        kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
+                  chroma_qp_offset=p.chroma_qp_offset)
+        if self.mesh is None:
+            return lambda *a: DE.encode_frame_b(*a, **kw)
+        if "b" not in self._sharded:
+            self._sharded["b"] = DE.make_sharded_encode_b(
+                self.mesh, self.mesh_axis, **kw)
+        return self._sharded["b"]
 
     def _is_idr(self, idx: int) -> bool:
         return idx == 0 or (self.intra_period > 0
@@ -243,13 +286,9 @@ class DeviceAVCCodec:
         if force is None:
             force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
                                 device=self.device)
-        kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
-                  chroma_qp_offset=p.chroma_qp_offset,
-                  transform8=p.transform_8x8, sub8x8=self.sub8x8,
-                  scaling_default=p.scaling_matrix == "default")
         if not refs:
-            return DE.encode_frame(y, u, v, *self._dummy_refs(), qp, 0, force,
-                                   intra_only=True, **kw)
+            return self._encode_fn(True)(y, u, v, *self._dummy_refs(), qp, 0,
+                                         force)
         R = max(p.num_ref_frames, 1) if n_refs is None else n_refs
         n_valid = min(len(refs), R)
         sel = [refs[min(i, n_valid - 1)] for i in range(R)]
@@ -260,8 +299,8 @@ class DeviceAVCCodec:
                                      for r, e in zip(sel, wp["l0"])])
             wp_c = torch.as_tensor(np.array([e[2:6] for e in wp["l0"]],
                                             np.int32)).to(self.device)
-        return DE.encode_frame(y, u, v, *stacks, qp, n_valid, force, wp_c,
-                               intra_only=False, **kw)
+        return self._encode_fn(False)(y, u, v, *stacks, qp, n_valid, force,
+                                      wp_c)
 
     def encode_sequence(self, frames, qp: int = None, verbose: bool = False,
                         force_intra=None, rate_control=None):
@@ -285,6 +324,9 @@ class DeviceAVCCodec:
         bu = (rc is not None and getattr(rc, "rc_mode", 1) == 3
               and self.n_slices > 1)
         if bu:
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "basic-unit RC is not mesh-sharded yet")
             rc.basic_units = self.n_slices     # BU = one row-band slice
         R = max(p.num_ref_frames, 1)
         mb_h, mb_w = p.mb_h, p.mb_w
@@ -484,10 +526,9 @@ class DeviceAVCCodec:
             y, u, v = self.planes(frames[disp])
             col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32)).to(
                 self.device) for a in col_motion)
-            sym, rec, tctx = DE.encode_frame_b(
+            sym, rec, tctx = self._encode_fn_b()(
                 y, u, v, *(x[None] for x in prep0), *(x[None] for x in prep1),
-                col_mv, col_ref, fqp, 1, 1, mb_h=mb_h, mb_w=mb_w, sr=self.sr,
-                chroma_qp_offset=p.chroma_qp_offset, n_slices=self.n_slices)
+                col_mv, col_ref, fqp, 1, 1)
             sym_np = host_symbols(sym, torch.int32)
             ctx_np = {k: v.cpu().numpy().astype(np.int64)
                       for k, v in tctx.items()}

@@ -10,8 +10,9 @@ consuming the per-MB symbol arrays emitted here.  High profile adds the
 per-MB 8x8 transform with its RD choice (``transform8``), P_8x8
 sub-partitions 8x4/4x8/4x4 (``sub8x8``) and the spec default scaling lists
 (``scaling_default``).  B frames (:func:`encode_frame_b`) choose among
-spatial direct, L0/L1/Bi 16x16 and intra; the mesh-sharded encoders are not
-ported.
+spatial direct, L0/L1/Bi 16x16 and intra.  The mesh-sharded encoders
+(:func:`make_sharded_encode`, :func:`make_sharded_encode_b`) split the
+row-band slices over the slots of a ``parallel.Mesh`` axis.
 
 Layout differs from the JAX package where that changes no result:
 
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import device_const
+from ..parallel.mesh import gather
 from ..ops.me import sixtap_phases, edge_pad
 from ..ops.transform import COEFF_COST
 from . import quant_dev as Q
@@ -1608,7 +1610,22 @@ def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
     ref/mb_intra, and t8 with ``transform8``)."""
     if mb_h % n_slices:
         raise ValueError(f"n_slices {n_slices} must divide mb_h {mb_h}")
-    sb_h = mb_h // n_slices
+    sym, st = _encode_bands(
+        org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp, n_valid,
+        force_intra, wp_c, sr=sr, n_slices=n_slices, intra_only=intra_only,
+        chroma_qp_offset=chroma_qp_offset, transform8=transform8,
+        sub8x8=sub8x8, scaling_default=scaling_default)
+    rec, ctx = assemble(sym, st, mb_h, mb_w)
+    return sym, rec, ctx
+
+
+def _encode_bands(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
+                  n_valid: int, force_intra, wp_c=None, *, sr: int,
+                  n_slices: int, intra_only: bool, sub8x8: bool, **opts):
+    """Stages A and B, then the decision scan, of the ``n_slices`` row
+    bands of a picture (or of one mesh slot's bands): (sym, band state) of
+    :func:`decide`; ``opts`` are its High-profile and chroma options."""
+    mb_h, mb_w = org_y.shape[0] // 16, org_y.shape[1] // 16
     R = ref_ups.shape[0]
     nmb = mb_h * mb_w
     if intra_only:
@@ -1619,13 +1636,9 @@ def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
                             device=org_y.device)
     else:
         mv_q, sad_q = search(org_y, ref_ups, sr, qp, n_slices, sub8x8)
-    sym, st = decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q,
-                     sad_q, qp, n_valid, force_intra, sr=sr, sb_h=sb_h,
-                     intra_only=intra_only, chroma_qp_offset=chroma_qp_offset,
-                     transform8=transform8, sub8x8=sub8x8,
-                     scaling_default=scaling_default, wp_c=wp_c)
-    rec, ctx = assemble(sym, st, mb_h, mb_w)
-    return sym, rec, ctx
+    return decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
+                  qp, n_valid, force_intra, sr=sr, sb_h=mb_h // n_slices,
+                  intra_only=intra_only, sub8x8=sub8x8, wp_c=wp_c, **opts)
 
 
 # ===========================================================================
@@ -1958,16 +1971,27 @@ def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
     nnz/mv0/ref0/mv1/ref1/mb_intra)."""
     if mb_h % n_slices:
         raise ValueError(f"n_slices {n_slices} must divide mb_h {mb_h}")
-    sb_h = mb_h // n_slices
-    (mv0_q, sad0_q), (mv1_q, sad1_q) = (
-        tuple(x[:, :, 0] for x in search(org_y, ups, sr, qp, n_slices,
-                                          only16=True))
-        for ups in (r0_ups, r1_ups))
-    sym, st = decide_b(org_y, org_u, org_v, (r0_ups, r0_us, r0_vs),
-                       (r1_ups, r1_us, r1_vs), mv0_q, sad0_q, mv1_q, sad1_q,
-                       col_mv, col_ref, qp, nv0, nv1, sr=sr, sb_h=sb_h,
-                       chroma_qp_offset=chroma_qp_offset)
+    sym, st = _encode_bands_b(
+        org_y, org_u, org_v, (r0_ups, r0_us, r0_vs), (r1_ups, r1_us, r1_vs),
+        col_mv, col_ref, qp, nv0, nv1, sr=sr, n_slices=n_slices,
+        chroma_qp_offset=chroma_qp_offset)
     return (sym,) + assemble_b(sym, st, mb_h, mb_w)
+
+
+def _encode_bands_b(org_y, org_u, org_v, r0, r1, col_mv, col_ref, qp,
+                    nv0: int, nv1: int, *, sr: int, n_slices: int,
+                    chroma_qp_offset: int = 0):
+    """Both lists' Stages A and B over the 16x16 slot, then the B decision
+    scan, of the ``n_slices`` row bands of a picture (or of one mesh slot's
+    bands); r0/r1 the (ups, us, vs) stacks.  Returns (sym, band state)."""
+    (mv0_q, sad0_q), (mv1_q, sad1_q) = (
+        tuple(x[:, :, 0] for x in search(org_y, r[0], sr, qp, n_slices,
+                                          only16=True))
+        for r in (r0, r1))
+    return decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q,
+                    sad1_q, col_mv, col_ref, qp, nv0, nv1, sr=sr,
+                    sb_h=org_y.shape[0] // 16 // n_slices,
+                    chroma_qp_offset=chroma_qp_offset)
 
 
 def assemble_b(sym, st, mb_h: int, mb_w: int):
@@ -1984,3 +2008,129 @@ def assemble_b(sym, st, mb_h: int, mb_w: int):
                ref1=torch.clamp(st["ref1"], min=-1).reshape(h4, w4),
                mb_intra=sym["mb_intra"].reshape(mb_h, mb_w))
     return rec, ctx
+
+
+# ===========================================================================
+# Mesh sharding: row-band slices over the slots of one mesh axis
+# ===========================================================================
+#
+# Slices reset every context, so a picture's bands are independent: each
+# slot encodes its run of bands on its own device with the band views the
+# unsharded encoder reads (the padded reference rows a band's view covers
+# are real neighbour-band pixels), and the host puts the bands back
+# together in order.  Each slot's decision scan captures its own CUDA graph
+# (``_capture`` runs per thread on a side stream of the slot's device).
+
+def band_slots(mesh, axis: str, mb_h: int, n_slices: int):
+    """(slot devices along ``axis``, bands per slot); raises unless the
+    bands divide the picture and split evenly over the slots."""
+    if mb_h % n_slices:
+        raise ValueError(f"n_slices {n_slices} must divide mb_h {mb_h}")
+    devs = mesh.axis_devices(axis)
+    if n_slices % len(devs):
+        raise ValueError(f"n_slices {n_slices} must divide over "
+                         f"{len(devs)} devices on mesh axis {axis!r}")
+    return devs, n_slices // len(devs)
+
+
+def _slot_rows(b0: int, nb: int, sb_h: int, sr: int):
+    """Row ranges of slot bands [b0, b0 + nb): (luma rows of the picture,
+    luma rows of the padded reference planes, their chroma twins), as
+    ``tpu_enc._band_views`` gives each band rows [s*bandH, s*bandH + bandH
+    + 2P) of the padded planes."""
+    band_h = sb_h * 16
+    y0, y1 = b0 * band_h, (b0 + nb) * band_h
+    P, PC = luma_pad(sr), chroma_pad(sr)
+    return (slice(y0, y1), slice(y0, y1 + 2 * P),
+            slice(y0 // 2, y1 // 2), slice(y0 // 2, y1 // 2 + 2 * PC))
+
+
+def _slot_qp(qp, b0: int, nb: int):
+    """The frame QP, or the slot's run of per-slice QPs."""
+    if isinstance(qp, (int, np.integer)):
+        return int(qp)
+    return [int(q) for q in np.asarray(qp).reshape(-1)[b0:b0 + nb]]
+
+
+def _to(x, dev):
+    return x.to(dev).contiguous()
+
+
+def _gather_bands(parts, home) -> dict:
+    """Per-slot dicts of band-major tensors -> one dict on ``home``."""
+    return {k: gather([p[k] for p in parts], home) for k in parts[0]}
+
+
+def make_sharded_encode(mesh, axis: str, *, mb_h: int, mb_w: int, sr: int,
+                        intra_only: bool, chroma_qp_offset: int = 0,
+                        n_slices: int = 1, transform8: bool = False,
+                        sub8x8: bool = False, scaling_default: bool = False):
+    """A frame encoder sharded over the slots of ``mesh`` axis ``axis``
+    (``tpu_enc.make_sharded_encode``): the picture's ``n_slices`` row-band
+    slices are split over the slots (``n_slices`` a multiple of the slot
+    count) and each slot runs Stages A and B and the decision scan of its
+    bands on its own device.  The returned callable has the signature and
+    outputs of :func:`encode_frame`, on the device of ``org_y``, and gives
+    the same symbols; explicit WP (``wp_c``) is not sharded and raises."""
+    devs, nb = band_slots(mesh, axis, mb_h, n_slices)
+    sb_h = mb_h // n_slices
+    opts = dict(sr=sr, n_slices=nb, intra_only=intra_only, sub8x8=sub8x8,
+                chroma_qp_offset=chroma_qp_offset, transform8=transform8,
+                scaling_default=scaling_default)
+
+    def encode(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
+               n_valid: int, force_intra, wp_c=None):
+        if wp_c is not None:
+            raise NotImplementedError("WP is not mesh-sharded")
+        home = org_y.device
+        syms, sts = [], []
+        for k, dev in enumerate(devs):
+            ry, rp, rc, rpc = _slot_rows(k * nb, nb, sb_h, sr)
+            sym, st = _encode_bands(
+                _to(org_y[ry], dev), _to(org_u[rc], dev),
+                _to(org_v[rc], dev), _to(ref_ups[..., rp, :], dev),
+                _to(ref_us[:, rpc], dev), _to(ref_vs[:, rpc], dev),
+                _slot_qp(qp, k * nb, nb), n_valid,
+                _to(force_intra[k * nb * sb_h:(k + 1) * nb * sb_h], dev),
+                **opts)
+            syms.append(sym)
+            sts.append(st)
+        sym = _gather_bands(syms, home)
+        rec, ctx = assemble(sym, _gather_bands(sts, home), mb_h, mb_w)
+        return sym, rec, ctx
+
+    return encode
+
+
+def make_sharded_encode_b(mesh, axis: str, *, mb_h: int, mb_w: int,
+                          sr: int, chroma_qp_offset: int = 0,
+                          n_slices: int = 1):
+    """The mesh-sharded twin of :func:`encode_frame_b`
+    (``tpu_enc.make_sharded_encode_b``): row-band slices over the slots of
+    ``axis``, each slot with its bands' views of both lists' references and
+    its rows of the colocated motion."""
+    devs, nb = band_slots(mesh, axis, mb_h, n_slices)
+    sb_h = mb_h // n_slices
+
+    def encode(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
+               r1_vs, col_mv, col_ref, qp, nv0: int, nv1: int):
+        home = org_y.device
+        syms, sts = [], []
+        for k, dev in enumerate(devs):
+            ry, rp, rc, rpc = _slot_rows(k * nb, nb, sb_h, sr)
+            c4 = slice(k * nb * sb_h * 4, (k + 1) * nb * sb_h * 4)
+            refs = [(_to(ups[..., rp, :], dev), _to(us[:, rpc], dev),
+                     _to(vs[:, rpc], dev))
+                    for ups, us, vs in ((r0_ups, r0_us, r0_vs),
+                                        (r1_ups, r1_us, r1_vs))]
+            sym, st = _encode_bands_b(
+                _to(org_y[ry], dev), _to(org_u[rc], dev),
+                _to(org_v[rc], dev), *refs, _to(col_mv[c4], dev),
+                _to(col_ref[c4], dev), _slot_qp(qp, k * nb, nb), nv0, nv1,
+                sr=sr, n_slices=nb, chroma_qp_offset=chroma_qp_offset)
+            syms.append(sym)
+            sts.append(st)
+        sym = _gather_bands(syms, home)
+        return (sym,) + assemble_b(sym, _gather_bands(sts, home), mb_h, mb_w)
+
+    return encode

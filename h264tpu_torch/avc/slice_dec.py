@@ -19,9 +19,14 @@ read_comp_cavlc.c, mb_prediction.c, mc_direct.c}``.
 MVC 2-view stereo (``decode_mvc``): view 1's coded-slice extensions with
 the co-temporal base picture as an inter-view reference.
 
+FMO slice groups take their map from ``models/resilience.py``; a picture
+whose slices did not cover every MB (lost NAL units) is concealed MB by MB
+with ``avc/erc.py`` (``AVCDecoder.concealed_mbs`` counts the MBs of each
+picture).
+
 Raise ``NotImplementedError``: Intra 8x8 (I_NxN with
-transform_size_8x8_flag, CAVLC or CABAC), FMO, I_PCM under CABAC (as in
-the reference), error concealment, fields/MBAFF, 4:2:2/4:4:4/>8-bit.
+transform_size_8x8_flag, CAVLC or CABAC), I_PCM under CABAC (as in the
+reference), fields/MBAFF, 4:2:2/4:4:4/>8-bit.
 
 The port's own copy of ``h264tpu/avc/slice_dec.py``; it imports nothing
 from ``h264tpu``.
@@ -44,6 +49,8 @@ from . import native as AN
 from . import quant8 as Q8
 from . import qmatrix as QM
 from .deblock import DeblockContext
+from . import erc as ERC
+from ..models.resilience import slice_group_map
 
 
 def parse_sps(rbsp: bytes) -> dict:
@@ -214,7 +221,16 @@ def _slice_group_map(pps: dict, mb_w: int, mb_h: int,
     """mapUnitToSliceGroupMap (spec 8.2.2.1-8.2.2.8) -> flat [n_mb];
     the full 7-type generator lives in models/resilience.py.  For types
     3..5 ``change_cycle`` is the slice-header slice_group_change_cycle."""
-    raise NotImplementedError("FMO is not ported")
+    t = pps["sg_map_type"]
+    m = slice_group_map(t, pps["slice_groups"], mb_w, mb_h,
+                        run_lengths=pps.get("sg_runs"),
+                        top_left=pps.get("sg_tl"),
+                        bottom_right=pps.get("sg_br"),
+                        change_direction=pps.get("sg_change_dir", 0),
+                        change_rate=pps.get("sg_change_rate", 1),
+                        change_cycle=change_cycle,
+                        explicit_map=pps.get("sg_explicit"))
+    return m.reshape(-1).astype(np.int64)
 
 
 def _te(r: BitReader, max_val: int) -> int:
@@ -242,6 +258,8 @@ class AVCDecoder:
         self._prev_poc_lsb = 0
         self._prev_poc_msb = 0
         self.trace = [] if trace else None
+        # MBs concealed in each finished picture, in decode order
+        self.concealed_mbs = []
         # MVC view 1: the co-temporal base picture (``decode_mvc``)
         self._inter_view_entry = None
 
@@ -295,6 +313,7 @@ class AVCDecoder:
         self._order = []       # (idr_epoch, poc) per output frame
         self._idr_epoch = 0
         self._pic = None
+        self.concealed_mbs = []
         poc_reorder = False
         nals = list(annexb_parse(stream))
         i = 0
@@ -422,9 +441,8 @@ class AVCDecoder:
             return None
         self._pic = None
         sps, pps = pic["sps"], pic["pps"]
-        if not pic["decoded"].all():
-            # lost slices: MB-level concealment (erc_do_i/erc_do_p shape)
-            raise NotImplementedError("error concealment is not ported")
+        # lost slices: MB-level concealment (erc_do_i/erc_do_p shape)
+        self.concealed_mbs.append(ERC.conceal_picture(pic))
         rec = pic["rec"]
         ctx = DeblockContext(pic["mb_w"], pic["mb_h"], pic["qp"],
                              pps["chroma_qp_offset"])

@@ -1,6 +1,6 @@
 """Fractal + H.264 hybrid video codec — frame pipeline + FVC bitstream.
 
-Port of ``h264tpu/models/fractal_codec.py`` for one device: every
+Port of ``h264tpu/models/fractal_codec.py``: every
 ``intra_period``-th frame is coded intra (9-mode wavefront), all others are
 P frames, fractal by default:
 
@@ -20,7 +20,9 @@ quadratic model of ``models/ratectl.py``), Annex-B and RTP containers with
 frame-copy concealment in the decoder, CABAC and Exp-Golomb residuals, 3-view
 coding with a second reference frame for the side views
 (:meth:`FractalCodec.encode_sequence_views`) and region coding with
-alpha-plane masks (``num_regions=2``, frame type 3).
+alpha-plane masks (``num_regions=2``, frame type 3).  With a device mesh
+(``FractalCodec(cfg, mesh=)``) fractal P frames run as row tiles over its
+slots (``parallel/tiled_search.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, mark as _mark
 from ..utils.config import CodecConfig
 from ..utils.yuv import psnr
 from ..ops import fractal as F
@@ -43,6 +45,7 @@ from ..ops import segment as SG
 from ..entropy.bitio import BitWriter, BitReader
 from ..entropy import fractal_syntax as FS
 from ..bitstream import nal, rtp
+from ..parallel.tiled_search import tiled_p_step
 from .ratectl import QuadraticRateControl
 
 _MAP_KEYS = ("a", "beta", "dx", "dy", "ref", "shape")
@@ -72,14 +75,6 @@ def _as_tensor(a, device) -> torch.Tensor:
     """An int32 tensor on ``device`` from a numpy array or a tensor."""
     t = a if torch.is_tensor(a) else torch.from_numpy(np.array(a, np.int32))
     return t.to(device=device, dtype=torch.int32)
-
-
-def _mark(marks, device):
-    """On CUDA, append a CUDA event recorded now to ``marks`` (a list), so
-    that a caller can time the device stages of a frame between them."""
-    if marks is not None and device.type == "cuda":
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
 
 
 def _host(a) -> np.ndarray:
@@ -112,9 +107,20 @@ class FrameResult:
 class FractalCodec:
     """Sequence encoder with fractal (or classic) P frames."""
 
-    def __init__(self, cfg: CodecConfig, device=None):
+    def __init__(self, cfg: CodecConfig, device=None, mesh=None):
+        """``device``: None is the CUDA card (raises without one), or the
+        first slot of ``mesh`` when one is given; "cpu" runs the plain
+        PyTorch path.  ``mesh``: a ``parallel.Mesh`` with axes ("gop",
+        "tile") and a gop axis of 1: fractal P frames with one reference
+        then run the row-tile step (``parallel/tiled_search.py``) over its
+        tile slots, and the stream is byte-identical to the unsharded one
+        (the deblock bands come from ``cfg.tile_rows``, a multiple of the
+        tile count).  I frames, classic inter and the 3-view side views
+        keep the unsharded step."""
         self.cfg = cfg.validate()
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None or mesh is None
+            else mesh.devices.flat[0])
         fr = cfg.fractal
         # tol_4 is faithfully unused: the reference's 4x4 comparison is
         # commented out (FR/src/block_enc.c:1681)
@@ -126,6 +132,17 @@ class FractalCodec:
                     int(round(fr.max_alpha * 100)),
                     int(round(fr.min_beta)), int(round(fr.max_beta))))
         self._groups = max(cfg.tile_rows, 1)
+        self.mesh = mesh
+        if mesh is not None:
+            if cfg.tile_rows % mesh.shape["tile"]:
+                raise ValueError("cfg.tile_rows must be a multiple of the "
+                                 "mesh 'tile' axis size")
+            if mesh.shape.get("gop") != 1:
+                raise ValueError("FractalCodec shards one frame at a time: "
+                                 "the mesh's 'gop' axis must be 1")
+            self._tiled = tiled_p_step(
+                mesh, deblock=cfg.deblock, tile_rows=cfg.tile_rows,
+                **self._search_kw)
 
     # -- intra step (wavefront 4x4 intra, ops/intra.py) ---------------------
     def _i_step(self, y, u, v, qp):
@@ -240,7 +257,8 @@ class FractalCodec:
         waits on.  ``ref`` (and ``ref2``, the second reference frame of a
         3-view side view) may be numpy (uint8 or int32) or device tensors;
         ``qp`` overrides the config's (rate control); ``marks`` collects
-        the CUDA events of a P frame's stages (``_p_plane``, ``_c_step``).
+        the CUDA events of a P frame's stages (``_p_plane``, ``_c_step``;
+        on a mesh, the four stages of every tile of every plane).
         """
         orgs = _as_planes(yuv, self.device)
         dims = [tuple(p.shape) for p in orgs]
@@ -262,10 +280,19 @@ class FractalCodec:
                 *orgs, *_as_planes(ref, self.device), qp, marks)
         else:
             kind = "p"
-            r2 = None if ref2 is None else _as_planes(ref2, self.device)
-            maps, zzs, recs = self._p_step(
-                *orgs, *_as_planes(ref, self.device), qp, ref2=r2,
-                marks=marks)
+            refs = _as_planes(ref, self.device)
+            if self.mesh is not None and ref2 is None:
+                maps_b, zzs_b, recs_b = self._tiled(
+                    *(p[None] for p in orgs + refs), qp, marks=marks)
+                maps = [{k: m[0] for k, m in d.items()} for d in maps_b]
+                zzs = [z[0] for z in zzs_b]
+                recs = [r[0] for r in recs_b]
+            else:
+                # the 3-view side views (ref2) keep the unsharded step: the
+                # tiled step has no second reference
+                r2 = None if ref2 is None else _as_planes(ref2, self.device)
+                maps, zzs, recs = self._p_step(*orgs, *refs, qp, ref2=r2,
+                                               marks=marks)
             for i in range(3):
                 for f in _MAP_KEYS:
                     host[f"{i}_{f}"] = maps[i][f]

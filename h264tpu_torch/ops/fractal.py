@@ -355,11 +355,17 @@ def _pool_cells(x: torch.Tensor, ch: int, cw: int) -> torch.Tensor:
 
 
 def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
-                       offsets: np.ndarray, bounds=None):
+                       offsets: np.ndarray, bounds=None, halo: int = 0,
+                       y_lo: int = None, y_hi: int = None):
     """Best (rms, ref, spiral)-lexicographic candidate of every block of every
-    shape over all offsets and reference planes at once."""
+    shape over all offsets and reference planes at once.  ``refs`` is
+    [R, H + 2*halo, W]; a domain block is valid when its rows lie in
+    [y_lo, y_hi) (org coordinates; default [0, H))."""
     dev = org.device
-    R, H, W = refs.shape
+    H, W = org.shape
+    R = refs.shape[0]
+    y_lo = 0 if y_lo is None else y_lo
+    y_hi = H if y_hi is None else y_hi
     n_off = offsets.shape[0]
     sr = int(np.abs(offsets).max())
     org = org.to(torch.int32).contiguous()
@@ -367,11 +373,15 @@ def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
     dx_all = offs[:, 0].to(torch.int64)
     dy_all = offs[:, 1].to(torch.int64)
 
-    refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr)).contiguous()
-    cross = cross_cell_sums(org, refs_pad, offs, sr, slots)  # [R, n_off, cy, cx]
+    # the kernel's [R, H+2sr, W+2sr] window: halo rows where the stack has
+    # them (a row tile's context), zero rows past the frame edge
+    refs_pad = torch.nn.functional.pad(refs, (sr, sr, sr, sr))
+    if halo:
+        refs_pad = refs_pad[:, halo:halo + H + 2 * sr]
+    cross = cross_cell_sums(org, refs_pad.contiguous(), offs, sr, slots)
 
     oc1, oc2 = range_cell_sums(org)
-    ii1 = integral_image(refs)                            # [R, H+1, W+1]
+    ii1 = integral_image(refs)                            # [R, He+1, W+1]
     ii2 = integral_image(refs * refs)
     cand_ref = torch.arange(R, device=dev)[:, None].expand(R, n_off).reshape(-1)
     cand_off = torch.arange(n_off, device=dev)[None, :].expand(R, n_off).reshape(-1)
@@ -389,7 +399,8 @@ def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
         d2_map = torch.nn.functional.pad(window_sums(ii2, bh, bw), pad)
         by_pix = torch.arange(nby, device=dev) * bh
         bx_pix = torch.arange(nbx, device=dev) * bw
-        yi = (sr + dy_all[:, None] + by_pix[None, :])[:, :, None]   # [n_off, nby, 1]
+        yi = (sr + halo + dy_all[:, None]
+              + by_pix[None, :])[:, :, None]                # [n_off, nby, 1]
         xi = (sr + dx_all[:, None] + bx_pix[None, :])[:, None, :]   # [n_off, 1, nbx]
         d1s = d1_map[:, yi, xi]                           # [R, n_off, nby, nbx]
         d2s = d2_map[:, yi, xi]
@@ -398,9 +409,9 @@ def _search_all_shapes(org: torch.Tensor, refs: torch.Tensor,
             n, s_r[None, None], s_r2[None, None], d1s, d2s, s_rd,
             *(bounds or (A_MIN, A_MAX, BETA_MIN, BETA_MAX)))
 
-        # validity: the domain block lies inside the frame
-        vy = ((by_pix[None, :] + dy_all[:, None] >= 0)
-              & (by_pix[None, :] + dy_all[:, None] + bh <= H))   # [n_off, nby]
+        # validity: the domain block lies inside [y_lo, y_hi) x [0, W)
+        vy = ((by_pix[None, :] + dy_all[:, None] >= y_lo)
+              & (by_pix[None, :] + dy_all[:, None] + bh <= y_hi))  # [n_off, nby]
         vx = ((bx_pix[None, :] + dx_all[:, None] >= 0)
               & (bx_pix[None, :] + dx_all[:, None] <= W - bw))   # [n_off, nbx]
         valid = vy[:, :, None] & vx[:, None, :]
@@ -463,10 +474,14 @@ def search_plane(org: torch.Tensor, ref: torch.Tensor, *, search_range: int,
                  tol16: float, tol8: float, use_halfpel: bool = True,
                  search_mode: int = 0, chun_lo: float = 0.9,
                  chun_hi: float = 1.0, bounds=None,
-                 extra_ref_ctx: torch.Tensor = None) -> TransTree:
+                 extra_ref_ctx: torch.Tensor = None, halo: int = 0,
+                 y_lo: int = None, y_hi: int = None) -> TransTree:
     """Full fractal search of one plane against the previous reconstruction
     (``encode_one_macroblock``, FR/src/block_enc.c:508, over every MB at
-    once).  ``org`` and ``ref`` are [H, W] with H, W multiples of 16.
+    once).  ``org`` is [H, W] with H, W multiples of 16; ``ref`` is
+    [H + 2*halo, W]: a row tile of a sharded frame carries ``halo`` context
+    rows above and below (0 for the whole frame), and ``y_lo``/``y_hi``
+    bound the valid domain rows in org coordinates (default [0, H)).
 
     ``extra_ref_ctx`` is a second reference frame (the side views of 3-view
     coding): its planes follow the first frame's in the stack (R = 8 with
@@ -477,11 +492,12 @@ def search_plane(org: torch.Tensor, ref: torch.Tensor, *, search_range: int,
     org = org.to(torch.int32)
     refs = _reference_planes(ref, use_halfpel, extra_ref_ctx)
     offsets = candidate_offsets(search_range, search_mode)
-    s16, s8, s84, s48, s44 = _search_all_shapes(org, refs, offsets, bounds)
+    s16, s8, s84, s48, s44 = _search_all_shapes(org, refs, offsets, bounds,
+                                                halo, y_lo, y_hi)
 
     # split only when the correlation gate AND the 16x16 tolerance both fail
     # (block_enc.c:847: if(chun<=1 && chun>=0.9 && rms > tol^2*no) -> split)
-    chun = chun_correlation(org, refs[0])
+    chun = chun_correlation(org, refs[0][halo:halo + H])
     f32 = np.float32
     mb_split = ((chun <= float(f32(chun_hi))) & (chun >= float(f32(chun_lo)))
                 & (s16.rms > float(f32(tol16 * tol16 * 256))))
@@ -536,7 +552,8 @@ _SHAPE_LOG2N = np.asarray([8, 6, 5, 5, 4], np.int32)
 
 def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
                           use_halfpel: bool = True,
-                          extra_ref_ctx: torch.Tensor = None) -> torch.Tensor:
+                          extra_ref_ctx: torch.Tensor = None,
+                          halo: int = 0) -> torch.Tensor:
     """Non-iterative fractal reconstruction of a whole plane from leaf maps.
 
     Exact integer form of ``rec = bound(0.5 + α·d + β − α·mean(d))``
@@ -544,10 +561,12 @@ def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
     S = Σd over the leaf's domain block,
     ``rec = clip(floor((50N + a(dN − S) + 100Nβ) / (100N)), 0, 255)``;
     S is recomputed from the reference planes as the decoder does;
-    ``extra_ref_ctx`` as in :func:`search_plane`.
+    ``ref`` is [H + 2*halo, W] and ``extra_ref_ctx`` as in
+    :func:`search_plane`.
     """
     dev = ref.device
     refs = _reference_planes(ref, use_halfpel, extra_ref_ctx)
+    He = H + 2 * halo
     a, beta, dx, dy, refi, shape = (
         _upsample(maps[k].to(torch.int64), 4, 4)
         for k in ("a", "beta", "dx", "dy", "ref", "shape"))
@@ -560,17 +579,17 @@ def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
     oy = yy_pix - yy_pix % bh          # leaf origin
     ox = xx_pix - xx_pix % bw
 
-    # domain pixel for this output pixel
-    yy = torch.clamp(yy_pix + dy, 0, H - 1)
+    # domain pixel for this output pixel (rows of the halo'd stack)
+    yy = torch.clamp(yy_pix + dy + halo, 0, He - 1)
     xx = torch.clamp(xx_pix + dx, 0, W - 1)
-    d = refs.reshape(-1)[refi * (H * W) + yy * W + xx].to(torch.int64)
+    d = refs.reshape(-1)[refi * (He * W) + yy * W + xx].to(torch.int64)
 
     # Σd over the leaf's domain block, per shape, gathered at the leaf origin
-    dom_y = torch.clamp(oy + dy, 0, H - 1)
+    dom_y = torch.clamp(oy + dy + halo, 0, He - 1)
     dom_x = torch.clamp(ox + dx, 0, W - 1)
-    ii = integral_image(refs)                              # [R, H+1, W+1]
+    ii = integral_image(refs)                              # [R, He+1, W+1]
     wsums = torch.stack([window_sums(ii, sh, sw) for sh, sw in SHAPES], dim=1)
-    flat = refi * (5 * H * W) + shape * (H * W) + dom_y * W + dom_x
+    flat = refi * (5 * He * W) + shape * (He * W) + dom_y * W + dom_x
     s_d = wsums.reshape(-1)[flat].to(torch.int64)
 
     n = torch.ones_like(log2n) << log2n
@@ -581,7 +600,8 @@ def reconstruct_from_maps(maps: dict, ref: torch.Tensor, H: int, W: int,
 
 def reconstruct_plane(tree: TransTree, ref: torch.Tensor, H: int, W: int,
                       use_halfpel: bool = True,
-                      extra_ref_ctx: torch.Tensor = None) -> torch.Tensor:
+                      extra_ref_ctx: torch.Tensor = None,
+                      halo: int = 0) -> torch.Tensor:
     """Encoder-side reconstruction: resolve the tree then reconstruct."""
     return reconstruct_from_maps(leaf_maps(tree, H, W), ref, H, W, use_halfpel,
-                                 extra_ref_ctx)
+                                 extra_ref_ctx, halo)

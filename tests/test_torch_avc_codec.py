@@ -22,6 +22,7 @@ from h264tpu_torch.avc import device_enc as DE
 from h264tpu_torch.avc.device_codec import DeviceAVCCodec
 from h264tpu_torch.avc.params import AVCParams, params_from_dict
 from h264tpu_torch.avc.slice_dec import AVCDecoder
+from h264tpu_torch.parallel import Mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -187,7 +188,7 @@ def test_no_device_without_a_card_raises():
 
 
 # options that raise in both packages: TPUAVCCodec's own limits, which the
-# port keeps, and the device mesh, which is not ported
+# port keeps, WP with a device mesh among them
 UNPORTED = {
     "b_frames_transform8": (dict(profile_idc=100, transform_8x8=True,
                                  poc_type=0), dict(bframes=1)),
@@ -196,7 +197,7 @@ UNPORTED = {
                                  profile_idc=77), {}),
     "weighted_pred_bframes": (dict(weighted_pred=True, profile_idc=77,
                                    poc_type=0), dict(bframes=1)),
-    "mesh": ({}, dict(mesh=object())),
+    "mesh": (dict(weighted_pred=True), dict(mesh=Mesh(["cpu"], ("slice",)))),
     "data_partitioning_cabac": (dict(cabac=True, profile_idc=77),
                                 dict(data_partitioning=True)),
 }

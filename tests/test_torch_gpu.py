@@ -404,3 +404,54 @@ def test_errdo_and_legacy_card_equal_cpu():
     for a, b in zip(LIC.decode_image(s_gpu),
                     LIC.decode_image(s_gpu, device="cpu")):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,W,sr", [
+    (32, 352, 7),                 # CIF luma over 9 row tiles
+    (16, 176, 7),                 # CIF chroma over 9 row tiles
+    (544, 1920, 7)])              # 1080p luma over 2 row tiles
+def test_cross_cells_kernel_on_halo_rows(H, W, sr):
+    """A row tile's window: the rows above and below are the neighbours'
+    pixels (the halo), only the columns are zero-padded; the kernel equals
+    its plain version there too."""
+    _need_card()
+    rng = np.random.default_rng(H + W)
+    org = torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.int32).cuda()
+    rows = torch.as_tensor(rng.integers(0, 256, (4, H + 2 * sr, W)),
+                           dtype=torch.int32).cuda()
+    refs_pad = torch.nn.functional.pad(rows, (sr, sr)).contiguous()
+    offs, slots = F.offset_tables(F.candidate_offsets(sr, 0), sr, "cuda")
+    got = F.cross_cell_sums(org, refs_pad, offs, sr, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, F.cross_cell_sums_reference(org, refs_pad, offs, sr))
+
+
+@pytest.mark.gpu
+def test_sharded_fractal_and_avc_on_a_card_mesh_equal_cpu():
+    """FractalCodec over a (1, 3) mesh and DeviceAVCCodec over a 3-slot
+    "slice" mesh, every slot on the card: each stream equals the same run
+    on a mesh of CPU slots, and the unsharded one."""
+    _need_card()
+    from h264tpu_torch.parallel import Mesh
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i % n) for i in range(3)]
+    H, W = 96, 128               # 3 tiles of whole MB rows, chroma too
+    frames = _blocky_frames(3, H, W)
+    cfg = CodecConfig(width=W, height=H, qp=24, intra_period=0, deblock=True,
+                      tile_rows=3, fractal=FractalConfig(search_range=7))
+    streams = [FractalCodec(cfg, mesh=Mesh([devs], ("gop", "tile")))
+               .encode_sequence(frames)[1]
+               for devs in (cards, ["cpu"] * 3)]
+    streams.append(FractalCodec(cfg, device="cpu").encode_sequence(frames)[1])
+    assert streams[0] == streams[1] == streams[2]
+    frames = _blocky_frames(3, 144, 176)
+    p = AVCParams(width=176, height=144, qp=28, num_ref_frames=1)
+    streams = [DeviceAVCCodec(p, search_range=8, n_slices=3,
+                              mesh=Mesh(devs, ("slice",)))
+               .encode_sequence(frames)[1] for devs in (cards, ["cpu"] * 3)]
+    streams.append(DeviceAVCCodec(p, search_range=8, n_slices=3,
+                                  device="cpu").encode_sequence(frames)[1])
+    assert streams[0] == streams[1] == streams[2]

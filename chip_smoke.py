@@ -139,7 +139,22 @@ Phases, in order; any failure exits non-zero before the result line:
 31. the port's ``parallel.dryrun.dryrun_multichip(8)``, stages 1-4;
 32. phase 5's CIF stream with one slice NAL lost, of the IDR and of a P
    picture: the port's decoder conceals 44 MBs (2 MB rows of 22); PSNR-Y
-   of the pictures against the encoder's reconstruction.
+   of the pictures against the encoder's reconstruction;
+33. the cfg-file entry path: a JM-style ``encoder.cfg`` (phase 3's CIF
+   configuration) read by ``config_from_cfg``, phase 3's frames written to
+   disk as 8-bit 4:2:0 (``YUVWriter``) and as 10-bit 4:4:4 and read back
+   (``YUVReader``, ``read_yuv_frame``), each encoded by ``FractalCodec`` on
+   the card: both streams equal phase 3's byte for byte, decode bit-exactly
+   on the card, 21 cross_cells launches each; the steady-state P interval
+   beside phase 3's, the ``SequenceReport`` summary and a ``log.dat`` row;
+34. the host conformant encoder ``AVCCodec`` (numpy on the host, as in the
+   reference): 1 IDR + 2 P CIF frames at its defaults (Baseline, QP 28,
+   SR 16) with host seconds per frame; at QCIF and SR 8, FMO all-IDR (map
+   types 0 and 1), lossless I_PCM, IbbP, open GOP (its recovery-point SEI
+   parsed back), redundant slices, UMHex, the RD picture decision, explicit
+   WP over 3 references (LMS) and an explicit coding-order sequence, each
+   decoded bit-exactly by the port's ``AVCDecoder``; and the FMO stream
+   with one slice group's NAL lost, concealed by the decoder.
 
 Every mesh puts slot i on card ``i % torch.cuda.device_count()`` and prints
 how many distinct cards it spans.
@@ -503,6 +518,26 @@ def device_kernel_ms(codec, frame, ref, profile_dir=None):
     return (dev_us / 1e3 if dev_us > 0 else None), n_kernels
 
 
+def steady_p_marks(codec, frames, ref):
+    """Host-clock marks of frames[1:] encoded as steady-state P frames,
+    pipelined as encode_sequence runs them (frame N's host entropy beside
+    frame N+1's device work): the start, then one mark as each frame
+    before the last is finalized, then the synchronised end."""
+    import torch
+    pending, marks = None, [time.perf_counter()]
+    for i in range(1, len(frames)):
+        disp = codec.dispatch_frame(frames[i], ref, i)
+        ref = disp["recs"]
+        if pending is not None:
+            codec.finalize_frame(pending)
+            marks.append(time.perf_counter())
+        pending = disp
+    codec.finalize_frame(pending)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    return marks
+
+
 def phase_main_path(seed: int, profile_dir=None):
     import torch
     from h264tpu_torch.models.fractal_codec import FractalCodec
@@ -537,20 +572,7 @@ def phase_main_path(seed: int, profile_dir=None):
     print(f"[cif] decode: bit-exact with the encoder recon, {dec_s:.3f} s",
           flush=True)
 
-    # steady-state P frames, pipelined as encode_sequence runs them
-    ref = results[0].recon_dev
-    pending = None
-    marks = [time.perf_counter()]
-    for i in range(1, 8):
-        disp = codec.dispatch_frame(frames[i], ref, i)
-        ref = disp["recs"]
-        if pending is not None:
-            codec.finalize_frame(pending)
-            marks.append(time.perf_counter())
-        pending = disp
-    codec.finalize_frame(pending)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
+    marks = steady_p_marks(codec, frames, results[0].recon_dev)
     p_fps = 7 / (marks[-1] - marks[0])
     gaps = np.diff(marks[1:]) * 1e3            # frame-to-frame, pipelined
     print(f"[cif] steady-state P-frame encode: {p_fps:.3f} fps over 7 frames "
@@ -568,7 +590,7 @@ def phase_main_path(seed: int, profile_dir=None):
         f"{dev_ms:.3f} ms in {n_kernels} kernels, busy share " \
         f"{dev_ms / p_wall_ms:.4f} of the {p_wall_ms:.1f} ms steady-state frame"
     print(f"[cif] one P frame on the card: {busy}", flush=True)
-    return launches
+    return launches, stream, float(np.median(gaps))
 
 
 def phase_1080p(seed: int):
@@ -2308,6 +2330,243 @@ def phase_concealment(results, stream):
               flush=True)
 
 
+ENCODER_CFG = """\
+# encoder.cfg in JM syntax: phase 3's CIF configuration
+InputFile            = "blocky_cif.yuv"   # read by the caller, not mapped
+ImageWidth           = 352
+ImageHeight          = 288
+I_Frame              = 0                  # IPPP
+FramesToBeEncoded    = 8
+QPFirstFrame         = 24
+QPRemainingFrame     = 24
+Search_Range         = 7
+"""
+
+
+def write_10bit_444(path: str, frames):
+    """4:2:0 frames as 10-bit 4:4:4 planar little-endian: chroma repeated
+    2x2, every sample shifted left by 2."""
+    with open(path, "wb") as f:
+        for y, u, v in frames:
+            for pl in (y, np.kron(u, np.ones((2, 2), np.uint8)),
+                       np.kron(v, np.ones((2, 2), np.uint8))):
+                f.write((pl.astype("<u2") << 2).tobytes())
+
+
+def phase_cfg_file(seed: int, cif_stream: bytes, cif_p_ms: float):
+    """The user's way in: ``encoder.cfg`` + YUV files on disk ->
+    ``FractalCodec`` on the card; both files' streams equal phase 3's."""
+    import tempfile
+    import torch
+    from h264tpu_torch.models.fractal_codec import FractalCodec
+    from h264tpu_torch.ops import fractal as F
+    from h264tpu_torch.utils.config import config_from_cfg
+    from h264tpu_torch.utils.input import read_yuv_frame
+    from h264tpu_torch.utils.report import SequenceReport
+    from h264tpu_torch.utils.yuv import YUVReader, YUVWriter
+
+    H, W = 288, 352
+    frames = blocky_frames(8, H, W, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "encoder.cfg")
+        with open(cfg_path, "w") as f:
+            f.write(ENCODER_CFG)
+        cfg = config_from_cfg(cfg_path)
+        want = dataclasses.asdict(cif_config(H, W))
+        differ = [k for k, v in dataclasses.asdict(cfg).items()
+                  if v != want[k]]
+        print(f"[cfg] config_from_cfg: {cfg.width}x{cfg.height}, "
+              f"{cfg.num_frames} frames, QP {cfg.qp_i}/{cfg.qp}, SR "
+              f"{cfg.fractal.search_range}; fields apart from phase 3's "
+              f"config (the stream does not read them): {differ}", flush=True)
+        check(set(differ) <= {"num_frames", "qp_intra"},
+              f"cfg config differs from phase 3's in {differ}")
+
+        p420 = os.path.join(tmp, "blocky_cif.yuv")
+        p444 = os.path.join(tmp, "blocky_cif_444_10bit.yuv")
+        with YUVWriter(p420) as w:
+            for fr in frames:
+                w.write(*fr)
+        write_10bit_444(p444, frames)
+        reader = YUVReader(p420, cfg.width, cfg.height)
+        inputs = {
+            "420_8bit": [reader.read(i) for i in range(len(reader))],
+            "444_10bit": [read_yuv_frame(p444, cfg.width, cfg.height, i,
+                                         chroma=444, bit_depth=10)
+                          for i in range(cfg.num_frames)]}
+        launches = {}
+        for label, read in inputs.items():
+            check(len(read) == len(frames) and all(
+                np.array_equal(a, b) for fa, fb in zip(read, frames)
+                for a, b in zip(fa, fb)), f"[cfg] {label}: planes read back "
+                "differ from the frames written")
+            codec = FractalCodec(cfg, device="cuda")
+            codec.encode_sequence(read[:2])            # warm-up, as phase 3
+            torch.cuda.synchronize()
+            F.cross_cell_sums.launches = 0
+            t0 = time.time()
+            results, stream = codec.encode_sequence(read)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            launches[label] = F.cross_cell_sums.launches
+            check(stream == cif_stream,
+                  f"[cfg] {label}: stream differs from phase 3's")
+            check(launches[label] == 21, f"[cfg] {label}: "
+                  f"{launches[label]} cross_cells launches, not 21")
+            dec_s = fractal_decode_check(f"cfg {label}", stream, results)
+            marks = steady_p_marks(codec, read, results[0].recon_dev)
+            p_ms = float(np.median(np.diff(marks[1:])) * 1e3)
+            print(f"[cfg] {label}: stream == phase 3's ({len(stream)} bytes), "
+                  f"cross_cells launches {launches[label]}, decode on the "
+                  f"card bit-exact in {dec_s:.3f} s; steady-state P interval "
+                  f"median {p_ms:.1f} ms (phase 3: {cif_p_ms:.1f} ms)",
+                  flush=True)
+            rep = SequenceReport(label=f"cfg cif {label}",
+                                 frame_rate=cfg.frame_rate, t_start=t0)
+            for r in results:
+                rep.add(r)
+            rep.t_end = t1
+            logdat = os.path.join(tmp, "log.dat")
+            rep.append_logdat(logdat)
+            print("\n".join(f"[cfg] {line}" for line in
+                             rep.summary().splitlines()), flush=True)
+            with open(logdat) as f:
+                print(f"[cfg] log.dat: {f.read().splitlines()[-1]}",
+                      flush=True)
+    return launches["420_8bit"]
+
+
+def timed_host_encode(codec, frames):
+    """(results, stream, host seconds per frame in coding order): the codec
+    pulls frame i + 1 from the iterator right after frame i is coded."""
+    stamps = []
+
+    def pull():
+        for fr in frames:
+            stamps.append(time.perf_counter())
+            yield fr
+
+    results, stream = codec.encode_sequence(pull())
+    stamps.append(time.perf_counter())
+    return results, stream, np.diff(stamps)
+
+
+def phase_host_avc(seed: int):
+    """The host ``AVCCodec`` (and its slice writers), numpy as in the
+    reference: CIF at its defaults, then each host-only option at QCIF."""
+    from h264tpu_torch.avc import sei as SEI
+    from h264tpu_torch.avc.codec import AVCCodec
+    from h264tpu_torch.avc.explicit_seq import (encode_explicit_seq,
+                                                parse_explicit_seq)
+    from h264tpu_torch.avc.params import AVCParams
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    from h264tpu_torch.avc.slice_enc import slice_group_map
+    from h264tpu_torch.bitstream.nal import annexb_parse
+
+    H, W = 288, 352
+    codec = AVCCodec(AVCParams(width=W, height=H, qp=28))
+    results, stream, per = timed_host_encode(codec,
+                                             blocky_frames(3, H, W, seed))
+    check([r.frame_type for r in results] == ["IDR", "P", "P"],
+          "host avc cif: frame types")
+    dec_s = decode_check("host avc cif", stream, results)
+    print(f"[host avc] CIF Baseline QP 28 SR 16: host s per frame "
+          f"{[round(float(x), 3) for x in per]} (I {per[0]:.3f}, P mean "
+          f"{np.mean(per[1:]):.3f}); bits {[r.bits for r in results]}, "
+          f"PSNR-Y {[round(r.psnr_y, 3) for r in results]}; decoded "
+          f"bit-exactly in {dec_s:.3f} s", flush=True)
+
+    H, W, SR = 144, 176, 8
+    qcif = blocky_frames(7, H, W, seed)
+    main3 = dict(profile_idc=77, poc_type=0, num_ref_frames=2)
+    seq_text = ("Sequence {\nFrameCount : 5\n" + "".join(
+        f"Frame\n{{\nSeqNumber : {d}\nSliceType : {t}\nIDRPicture : "
+        f"{int(d == 0)}\nReference : {int(t != 'B')}\n}}\n"
+        for d, t in ((0, "I"), (2, "P"), (1, "B"), (4, "I"), (3, "B")))
+        + "}\n")
+    # label: (AVCParams fields, AVCCodec arguments, frames, frame types)
+    options = {
+        "fmo_type0": (dict(slice_groups=2, slice_group_map_type=0),
+                      dict(intra_period=1), qcif[:2], ["IDR"] * 2),
+        "fmo_type1": (dict(slice_groups=2, slice_group_map_type=1),
+                      dict(intra_period=1), qcif[:2], ["IDR"] * 2),
+        "lossless": ({}, dict(lossless=True), qcif[:2], ["IDR"] * 2),
+        "ibbp": (main3, dict(bframes=2), qcif,
+                 ["IDR", "B", "B", "P", "B", "B", "P"]),
+        "open_gop": ({}, dict(intra_period=3, open_gop=True), qcif[:4],
+                     ["IDR", "P", "P", "I"]),
+        "redundant": (dict(redundant_slices=True), {}, qcif[:2],
+                      ["IDR", "P"]),
+        "umhex": ({}, dict(me_method="umhex"), qcif[:2], ["IDR", "P"]),
+        "rd_picture_decision": ({}, dict(rd_picture_decision=True),
+                                qcif[:2], ["IDR", "P"]),
+        "wp_lms_3refs": (dict(profile_idc=77, weighted_pred=True,
+                              num_ref_frames=3), dict(wp_method="lms"),
+                         fade_frames(4, H, W, seed), ["IDR"] + ["P"] * 3),
+        "explicit_seq": (main3, None, qcif[:5],
+                         ["IDR", "B", "P", "B", "I"]),
+    }
+    streams = {}
+    for label, (fields, kw, frames, types) in options.items():
+        p = AVCParams(width=W, height=H, qp=28, **fields)
+        t0 = time.perf_counter()
+        if kw is None:
+            results, stream = encode_explicit_seq(
+                frames, p, parse_explicit_seq(seq_text), search_range=SR)
+        else:
+            codec = AVCCodec(p, search_range=SR, **kw)
+            results, stream = codec.encode_sequence(frames)
+        enc_s = time.perf_counter() - t0
+        got = [r.frame_type for r in results]
+        check(got == types, f"host avc {label}: frame types {got}")
+        dec_s = decode_check(f"host avc {label}", stream, results)
+        note = ""
+        if label == "lossless":
+            check(all(np.array_equal(a, b) for r, fr in zip(results, frames)
+                      for a, b in zip(r.recon, fr)),
+                  "host avc lossless: recon != source")
+            note = "; recon == source"
+        if label == "open_gop":
+            seis = [SEI.parse_sei_rbsp(u.rbsp) for u in annexb_parse(stream)
+                    if u.nal_type == 6]
+            rps = [SEI.parse_recovery_point(pl) for msgs in seis
+                   for t, pl in msgs if t == SEI.RECOVERY_POINT]
+            check(len(rps) == 1 and rps[0]["recovery_frame_cnt"] == 0,
+                  f"host avc open GOP: recovery points {rps}")
+            note = f"; recovery-point SEI {rps}"
+        if label == "rd_picture_decision":
+            note = f"; pic_qps {codec.pic_qps}"
+        if label == "redundant":
+            n_red = sum(1 for u in annexb_parse(stream) if u.nal_type == 1)
+            note = f"; {n_red} non-IDR slice NALs (primary + redundant)"
+        streams[label] = (results, stream)
+        print(f"[host avc] QCIF {label}: encode {enc_s:.3f} s host for "
+              f"{len(frames)} frames, bits {[r.bits for r in results]}, "
+              f"PSNR-Y {[round(r.psnr_y, 2) for r in results]}; decoded "
+              f"bit-exactly in {dec_s:.3f} s{note}", flush=True)
+
+    # FMO concealment: the second IDR's slice group 1 lost
+    results, stream = streams["fmo_type1"]
+    lossy = drop_slice_nal(stream, 3)
+    dec = AVCDecoder()
+    decoded = dec.decode(lossy)
+    gmap = slice_group_map(AVCParams(width=W, height=H, slice_groups=2,
+                                     slice_group_map_type=1))
+    n_lost = int((gmap == 1).sum())
+    check(dec.concealed_mbs == [0, n_lost],
+          f"host avc FMO loss: concealed MBs {dec.concealed_mbs}")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(decoded[0], results[0].recon)),
+          "host avc FMO loss: picture 0 != encoder recon")
+    mse = ((decoded[1][0].astype(np.float64) - results[1].recon[0]) ** 2
+           ).mean()
+    check(mse > 0, "host avc FMO loss: the lost group was not concealed")
+    print(f"[host avc] QCIF FMO type 1 with picture 1's slice group 1 lost: "
+          f"concealed MBs per picture {dec.concealed_mbs}; PSNR-Y of the "
+          f"concealed picture against the encoder recon "
+          f"{10 * np.log10(255.0 ** 2 / mse):.3f} dB", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2333,8 +2592,8 @@ def main(argv=None) -> int:
 
     timed("device and build", phase_device_and_build)
     krows = timed("kernels", phase_kernels, args.seed)
-    launches = timed("fractal cif", phase_main_path, args.seed,
-                     args.profile_dir)
+    launches, cif_stream, cif_p_ms = timed("fractal cif", phase_main_path,
+                                           args.seed, args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
     timed("fractal qcif card vs cpu", phase_card_vs_cpu, args.seed)
     rec_cif, avc_cif_results, avc_cif_stream = timed(
@@ -2384,6 +2643,9 @@ def main(argv=None) -> int:
     timed("dryrun multichip", phase_dryrun, 8)
     timed("avc concealment", phase_concealment, avc_cif_results,
           avc_cif_stream)
+    launches_cfg = timed("cfg-file entry", phase_cfg_file, args.seed,
+                         cif_stream, cif_p_ms)
+    timed("host avc", phase_host_avc, args.seed)
     # (record case, kernel case of phase 2 at that path's shapes, launches
     # of the path); the GOP workers run the CIF main path's shapes
     paths = (("cif_luma", "cif_luma", launches["cross_cells"]),
@@ -2393,7 +2655,8 @@ def main(argv=None) -> int:
              ("cif_luma_tiled9", "cif_luma_tiled9",
               launches_sharded["cif_tiled9"]),
              ("1080p_luma_tiled2", "1080p_luma_tiled2",
-              launches_sharded["1080p_tiled2"]))
+              launches_sharded["1080p_tiled2"]),
+             ("cif_luma_cfgfile", "cif_luma", launches_cfg))
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",

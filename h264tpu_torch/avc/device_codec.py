@@ -32,7 +32,6 @@ Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 
 import numpy as np
@@ -47,14 +46,7 @@ from . import pack_cabac as PKC
 from .deblock import DeblockContext
 from .params import AVCParams, assemble_stream, SLICE_I, SLICE_P
 from .wp import estimate_wp, estimate_wp_lms
-
-
-@dataclasses.dataclass
-class AVCFrameResult:
-    frame_type: str
-    bits: int
-    psnr_y: float
-    recon: tuple          # (Y, U, V) uint8
+from .codec import AVCFrameResult
 
 
 # symbol fields and their per-MB widths, as TPUAVCCodec transfers them; t8,

@@ -33,8 +33,9 @@ from .params import AVCParams, write_sps
 from .slice_dec import parse_sps
 from . import pack as PK
 from . import native as AN
-from .device_codec import (AVCFrameResult, DeviceAVCCodec, deblock_context,
-                           host_context, host_symbols)
+from .codec import AVCFrameResult
+from .device_codec import (DeviceAVCCodec, deblock_context, host_context,
+                           host_symbols)
 
 NAL_SUBSET_SPS = 15
 NAL_SLICE_EXT = 20

@@ -24,9 +24,9 @@ whose slices did not cover every MB (lost NAL units) is concealed MB by MB
 with ``avc/erc.py`` (``AVCDecoder.concealed_mbs`` counts the MBs of each
 picture).
 
-Raise ``NotImplementedError``: Intra 8x8 (I_NxN with
-transform_size_8x8_flag, CAVLC or CABAC), I_PCM under CABAC (as in the
-reference), fields/MBAFF, 4:2:2/4:4:4/>8-bit.
+Intra 8x8 (I_NxN with transform_size_8x8_flag, CAVLC or CABAC) decodes
+as in the reference.  Raise ``NotImplementedError``: I_PCM under CABAC (as
+in the reference), fields/MBAFF, 4:2:2/4:4:4/>8-bit.
 
 The port's own copy of ``h264tpu/avc/slice_dec.py``; it imports nothing
 from ``h264tpu``.
@@ -1294,7 +1294,8 @@ class _SliceDecoder:
         by, bx = mby * 4, mbx * 4
         if intra_type == 0 and self.pps["transform_8x8"] and \
                 r.u(1):                      # transform_size_8x8_flag
-            raise NotImplementedError("Intra 8x8 is not ported")
+            self._decode_intra8x8_mb(mby, mbx)
+            return
         if intra_type == 0:                  # I4x4
             modes = np.zeros(16, np.int64)
             for k in range(16):
@@ -1465,17 +1466,18 @@ class _SliceDecoder:
 
     # --- High profile: 8x8 transform (spec 8.5.12.2; JM ldecod
     # transform8x8.c itrans8x8 / read_comp_cavlc.c interleaved 4x4) ---
-    def _read_zz64_cavlc(self, mby, mbx, y8, x8):
+    def _read_zz64_cavlc(self, mby, mbx, y8, x8, intra=False):
         """CAVLC 8x8 residual: four interleaved 4x4 blocks — coefficient
         k of sub-block b4 sits at 8x8 zig-zag position 4*k + b4; each
         sub-block keeps its own total_coeff for nC/nnz (spec 7.3.5.3.2,
         JM read_comp_coeff_4x4_CAVLC with luma_transform_size_8x8_flag)."""
         by, bx = mby * 4 + y8 * 2, mbx * 4 + x8 * 2
+        rr = self.r_b if intra else self.r_c
         zz64 = np.zeros(64, np.int64)
         for b4 in range(4):
             bby, bbx = by + (b4 >> 1), bx + (b4 & 1)
             nc = self._nc_luma(bby, bbx)
-            zz = CV.read_block(self.r_c, nc, 16)
+            zz = CV.read_block(rr, nc, 16)
             self.st_nnz[bby, bbx] = int((zz != 0).sum())
             zz64[4 * np.arange(16) + b4] = zz
         return zz64
@@ -1495,6 +1497,92 @@ class _SliceDecoder:
             pred = self.rec_y[yy:yy + 8, xx:xx + 8]
             self.rec_y[yy:yy + 8, xx:xx + 8] = \
                 Q8.reconstruct8(pred, Q8.idct8x8(deq))
+
+    def _decode_intra8x8_mb(self, mby, mbx):
+        """I_NxN with transform_size_8x8_flag=1 (spec 8.3.2; JM ldecod
+        intra8x8_pred.c + transform8x8.c)."""
+        r = self.r
+        by, bx = mby * 4, mbx * 4
+        self.transform8[mby, mbx] = True
+        modes = np.zeros(4, np.int64)
+        for b8 in range(4):
+            y8, x8 = b8 >> 1, b8 & 1
+            cby, cbx = by + 2 * y8, bx + 2 * x8
+            avail_l = cbx > 0 and self._mb_ok(cby // 4, (cbx - 1) // 4)
+            avail_t = cby > 0 and self._mb_ok((cby - 1) // 4, cbx // 4)
+            ma = int(self.i4_modes[cby, cbx - 1]) if avail_l else -2
+            mb_ = int(self.i4_modes[cby - 1, cbx]) if avail_t else -2
+            if ma == -2 or mb_ == -2:
+                mpm = 2
+            else:
+                mpm = min(ma if ma >= 0 else 2, mb_ if mb_ >= 0 else 2)
+            if r.u(1):
+                m = mpm
+            else:
+                rem = r.u(3)
+                m = rem + (1 if rem >= mpm else 0)
+            modes[b8] = m
+            self.i4_modes[cby:cby + 2, cbx:cbx + 2] = m
+        ch_mode = r.ue()
+        cbp = int(CODENUM_TO_CBP_INTRA[r.ue()])
+        cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+        qp = self._prev_qp(mby * self.mb_w + mbx)
+        if cbp > 0:
+            qp = (qp + r.se() + 52) % 52
+        self.mb_qp[mby, mbx] = qp
+
+        for b8 in range(4):
+            y8, x8 = b8 >> 1, b8 & 1
+            if cbp_luma & (1 << b8):
+                zz64 = self._read_zz64_cavlc(mby, mbx, y8, x8, intra=True)
+            else:
+                zz64 = np.zeros(64, np.int64)
+                self.st_nnz[by + y8 * 2:by + y8 * 2 + 2,
+                            bx + x8 * 2:bx + x8 * 2 + 2] = 0
+            self._recon_i8x8_block(mby, mbx, b8, int(modes[b8]), zz64, qp)
+        self._decode_residual_chroma(mby, mbx, cbp_chroma, qp,
+                                     intra=True, ch_mode=ch_mode)
+        self.mb_intra[mby, mbx] = True
+
+    def _recon_i8x8_block(self, mby, mbx, b8, mode, zz64, qp):
+        """Reconstruct one Intra_8x8 block (shared CAVLC/CABAC): spec
+        8.3.2 availability geometry + filtered prediction + itrans8x8."""
+        y8, x8 = b8 >> 1, b8 & 1
+        y0, x0 = mby * 16, mbx * 16
+        yy, xx = y0 + y8 * 8, x0 + x8 * 8
+        W = self.rec_y.shape[1]
+        mb_t = mby > 0 and self._mb_ok(mby - 1, mbx)
+        mb_l = mbx > 0 and self._mb_ok(mby, mbx - 1)
+        avail_t = True if y8 == 1 else mb_t
+        avail_l = True if x8 == 1 else mb_l
+        if b8 == 0:
+            avail_tr = mb_t
+            avail_c = (mby > 0 and mbx > 0
+                       and self._mb_ok(mby - 1, mbx - 1))
+        elif b8 == 1:
+            avail_tr = (mby > 0 and mbx < self.mb_w - 1
+                        and self._mb_ok(mby - 1, mbx + 1))
+            avail_c = mb_t
+        elif b8 == 2:
+            avail_tr = True
+            avail_c = mb_l
+        else:
+            avail_tr = False
+            avail_c = True
+        top16 = np.zeros(16, np.int64)
+        if avail_t:
+            hi = min(xx + 16, W)
+            top16[:hi - xx] = self.rec_y[yy - 1, xx:hi]
+            if hi - xx < 16:
+                top16[hi - xx:] = self.rec_y[yy - 1, hi - 1]
+        left8 = self.rec_y[yy:yy + 8, xx - 1] if avail_l else \
+            np.zeros(8, np.int64)
+        corner = self.rec_y[yy - 1, xx - 1] if avail_c else 0
+        preds, _ = IP.pred8x8_all(top16, left8, corner, avail_t,
+                                  avail_l, avail_tr, avail_c)
+        deq = self._dq8(Q8.unzigzag8(zz64), qp, intra=True)
+        self.rec_y[yy:yy + 8, xx:xx + 8] = \
+            Q8.reconstruct8(preds[mode], Q8.idct8x8(deq))
 
     def _decode_residual_chroma(self, mby, mbx, cbp_chroma, qp, intra,
                                 ch_mode=None):
@@ -1729,7 +1817,55 @@ def _cabac_residual_luma8(self, mby, mbx, cbp_luma, qp, c):
 
 def _cabac_intra8x8_mb(self, mby, mbx, c):
     """I_NxN with transform_size_8x8_flag=1, CABAC entropy."""
-    raise NotImplementedError("Intra 8x8 is not ported")
+    rd = self.crd
+    cst = self.cst
+    by, bx = mby * 4, mbx * 4
+    self.transform8[mby, mbx] = True
+    modes = np.zeros(4, np.int64)
+    for b8 in range(4):
+        y8, x8 = b8 >> 1, b8 & 1
+        cby, cbx = by + 2 * y8, bx + 2 * x8
+        avail_l = cbx > 0 and self._mb_ok(cby // 4, (cbx - 1) // 4)
+        avail_t = cby > 0 and self._mb_ok((cby - 1) // 4, cbx // 4)
+        ma = int(self.i4_modes[cby, cbx - 1]) if avail_l else -2
+        mb_ = int(self.i4_modes[cby - 1, cbx]) if avail_t else -2
+        if ma == -2 or mb_ == -2:
+            mpm = 2
+        else:
+            mpm = min(ma if ma >= 0 else 2, mb_ if mb_ >= 0 else 2)
+        flag, rem = rd.intra_pred_mode()
+        m = mpm if flag else rem + (1 if rem >= mpm else 0)
+        modes[b8] = m
+        self.i4_modes[cby:cby + 2, cbx:cbx + 2] = m
+    ch_mode = rd.chroma_pred_mode(c)
+    cst.cipred[mby, mbx] = ch_mode
+    cbp = rd.cbp(c)
+    cst.cbp[mby, mbx] = cbp
+    cbp_luma, cbp_chroma = cbp & 15, cbp >> 4
+    qp = self._prev_qp(mby * self.mb_w + mbx)
+    if cbp > 0:
+        qp = (qp + rd.mb_qp_delta(c) + 52) % 52
+    else:
+        cst.last_dqp = 0
+    self.mb_qp[mby, mbx] = qp
+    for b8 in range(4):
+        y8, x8 = b8 >> 1, b8 & 1
+        cells = (slice(by + 2 * y8, by + 2 * y8 + 2),
+                 slice(bx + 2 * x8, bx + 2 * x8 + 2))
+        if cbp_luma & (1 << b8):
+            zz64 = rd.residual_block(c, self.CB.LUMA_8x8)
+            self.st_nnz[cells] = int((zz64 != 0).sum())
+            for cy in range(2):
+                for cx4 in range(2):
+                    c.set_cbf(self.CB.LUMA_4x4, by + 2 * y8 + cy,
+                              bx + 2 * x8 + cx4)
+        else:
+            zz64 = np.zeros(64, np.int64)
+            self.st_nnz[cells] = 0
+        self._recon_i8x8_block(mby, mbx, b8, int(modes[b8]), zz64, qp)
+    self._cabac_residual_chroma(mby, mbx, cbp_chroma, qp, c,
+                                intra=True, ch_mode=ch_mode)
+    self.mb_intra[mby, mbx] = True
 
 
 def _cabac_intra_mb(self, mby, mbx, intra_type, c):

@@ -1,17 +1,19 @@
 """Explicit weighted-prediction estimators (host, numpy).
 
 Copies of ``estimate_wp`` and ``estimate_wp_lms`` from
-``h264tpu/avc/codec.py``, which ``TPUAVCCodec`` calls once per P frame;
-the port imports nothing from ``h264tpu``.  Both round with Python's
-``round`` (half to even), as the reference does: the weights are written
-into the slice header, so the stream's bytes depend on it.  The LMS
-estimator reads the list-0 references as plain (y, u, v) planes, the host
-copies the device codec keeps.
+``h264tpu/avc/codec.py``, which ``AVCCodec`` and ``TPUAVCCodec`` call
+once per P frame; the port imports nothing from ``h264tpu``.  Both round
+with Python's ``round`` (half to even), as the reference does: the weights
+are written into the slice header, so the stream's bytes depend on it.
+The LMS estimator reads the list-0 references as reference planes or as
+plain (y, u, v) planes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .inter import PAD
 
 
 def estimate_wp(org_yuv, ref_means, d_l: int = 5, d_c: int = 5):
@@ -40,10 +42,16 @@ def estimate_wp_lms(org_yuv, refs, d_l: int = 5, d_c: int = 5):
     both clipped to the se(v) range [-128, 127].  Unlike the DC-ratio
     method this fits a gain and an offset, so additive fades (org = ref +
     c) get w = 2^d, o = c.  ``refs``: list-0 references, most recent
-    first, as (y, u, v) plane tuples."""
+    first — :class:`~.inter.RefPlanes` objects (the host ``AVCCodec``'s
+    DPB) or plain (y, u, v) plane tuples (the device codec's host
+    copies)."""
     org = [np.asarray(pl, np.float64) for pl in org_yuv]
     l0 = []
     for rp in refs:
+        if hasattr(rp, "G"):
+            h, w, P = rp.h, rp.w, PAD
+            rp = (rp.G[P:P + h, P:P + w], rp.u[P:P + h // 2, P:P + w // 2],
+                  rp.v[P:P + h // 2, P:P + w // 2])
         e = []
         for o_pl, r_pl, d in zip(org, rp, (d_l, d_c, d_c)):
             r_pl = np.asarray(r_pl).astype(np.float64)

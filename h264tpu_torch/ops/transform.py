@@ -123,6 +123,40 @@ def transform_quant_reconstruct(residual: torch.Tensor, pred: torch.Tensor,
     return lev, rec
 
 
+def _h4_stage(m: torch.Tensor) -> torch.Tensor:
+    """Rows of H4 = [[1,1,1,1],[1,1,-1,-1],[1,-1,-1,1],[1,-1,1,-1]] along
+    the last axis (H4 is symmetric)."""
+    m0, m1, m2, m3 = m.unbind(-1)
+    s01, d01 = m0 + m1, m0 - m1
+    s23, d23 = m2 + m3, m2 - m3
+    return torch.stack([s01 + s23, s01 - s23, d01 - d23, d01 + d23], dim=-1)
+
+
+def hadamard4x4_inv(dc: torch.Tensor) -> torch.Tensor:
+    """Inverse 4x4 Hadamard H4 @ DC @ H4 over [..., 4, 4] (no normalization;
+    caller applies JM scaling)."""
+    t = _h4_stage(dc.to(torch.int32))
+    return _h4_stage(t.transpose(-1, -2)).transpose(-1, -2)
+
+
+def hadamard4x4_fwd(dc: torch.Tensor) -> torch.Tensor:
+    """Forward 4x4 Hadamard on the 16 luma DC coefficients of an intra-16x16
+    MB with JM's /2 normalization, rounding toward zero (FR/src/block.c
+    dct_luma_16x16)."""
+    t = hadamard4x4_inv(dc)
+    return torch.sign(t) * (t.abs() >> 1)
+
+
+def hadamard2x2(dc: torch.Tensor) -> torch.Tensor:
+    """2x2 Hadamard for chroma DC over [..., 2, 2] (both directions are
+    identical)."""
+    d = dc.to(torch.int32)
+    a, b = d[..., 0, 0], d[..., 0, 1]
+    c, e = d[..., 1, 0], d[..., 1, 1]
+    return torch.stack([torch.stack([a + b + c + e, a - b + c - e], -1),
+                        torch.stack([a + b - c - e, a - b - c + e], -1)], -2)
+
+
 # ---------------------------------------------------------------------------
 # Frame <-> block reshaping helpers
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Mirrors ``h264tpu/utils/config.py`` field for field, so that a configuration
 built for the JAX package carries over through :func:`config_from_dict`
-without importing ``h264tpu``.
+without importing ``h264tpu``, and reads the same reference-style
+``encoder.cfg`` files (:func:`config_from_cfg`).
 """
 
 from __future__ import annotations
@@ -97,6 +98,18 @@ class CodecConfig:
     def qp_i(self) -> int:
         return self.qp if self.qp_intra is None else self.qp_intra
 
+    @property
+    def mbs_x(self) -> int:
+        return self.width // 16
+
+    @property
+    def mbs_y(self) -> int:
+        return self.height // 16
+
+    @property
+    def num_mbs(self) -> int:
+        return self.mbs_x * self.mbs_y
+
     def validate(self) -> "CodecConfig":
         if self.width % 16 or self.height % 16:
             raise ValueError("width/height must be multiples of 16 (pad input)")
@@ -126,3 +139,65 @@ def config_from_dict(d: dict) -> CodecConfig:
         if name in kw:
             kw[name] = enum_cls(int(kw[name]))
     return CodecConfig(fractal=FractalConfig(**fr), **kw)
+
+
+def parse_cfg_file(path: str) -> dict:
+    """Parse a reference-style ``Name = Value # comment`` config file into a dict.
+
+    Behavior-parity with ``FR/src/configfile.c:169`` (ParseContent): ``#``
+    starts a comment, keys are case-sensitive words, values are numbers or
+    strings.  We return the raw mapping; callers map known keys onto
+    :class:`CodecConfig` fields.
+    """
+    out: dict = {}
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or "=" not in line:
+                continue
+            key, val = line.split("=", 1)
+            key = key.strip()
+            val = val.strip().strip('"')
+            try:
+                out[key] = int(val)
+            except ValueError:
+                try:
+                    out[key] = float(val)
+                except ValueError:
+                    out[key] = val
+    return out
+
+
+# Mapping of reference cfg keys -> CodecConfig fields (subset; grows with features)
+_REF_KEY_MAP = {
+    "ImageWidth": "width",
+    "ImageHeight": "height",
+    "I_Frame": "intra_period",
+    "FramesToBeEncoded": "num_frames",
+    "FrameRate": "frame_rate",
+    "QPFirstFrame": "qp_intra",
+    "QPRemainingFrame": "qp",
+    "Tol_16": ("fractal", "tol_16"),
+    "Tol_8": ("fractal", "tol_8"),
+    "Tol_4": ("fractal", "tol_4"),
+    "Search_Range": ("fractal", "search_range"),
+    "Num_Regions": "num_regions",
+}
+
+
+def config_from_cfg(path: str, **overrides) -> CodecConfig:
+    """Build a CodecConfig from a reference-style cfg file plus overrides."""
+    raw = parse_cfg_file(path)
+    kw: dict = {}
+    fr_kw: dict = {}
+    for key, field in _REF_KEY_MAP.items():
+        if key not in raw:
+            continue
+        if isinstance(field, tuple):
+            fr_kw[field[1]] = raw[key]
+        else:
+            kw[field] = raw[key]
+    if fr_kw:
+        kw["fractal"] = FractalConfig(**fr_kw)
+    kw.update(overrides)
+    return CodecConfig(**kw).validate()

@@ -1,5 +1,5 @@
-"""Planar YUV 4:2:0 frame input and PSNR (the port's own copy of the parts of
-``h264tpu/utils/yuv.py`` it needs)."""
+"""Planar YUV 4:2:0 frame I/O and PSNR (the port's own copy of
+``h264tpu/utils/yuv.py``)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,37 @@ class YUVReader:
 
     def __len__(self):
         return self.num_frames
+
+
+class YUVWriter:
+    """Appends 8-bit planar YUV420 frames to a raw file."""
+
+    def __init__(self, path: str):
+        self._f = open(path, "wb")
+
+    def write(self, y: np.ndarray, u: np.ndarray, v: np.ndarray):
+        self._f.write(np.ascontiguousarray(y, dtype=np.uint8).tobytes())
+        self._f.write(np.ascontiguousarray(u, dtype=np.uint8).tobytes())
+        self._f.write(np.ascontiguousarray(v, dtype=np.uint8).tobytes())
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def pad_to_mb(plane: np.ndarray, mb: int = 16) -> np.ndarray:
+    """Edge-pad a plane so both dims are multiples of ``mb``."""
+    h, w = plane.shape
+    ph = (-h) % mb
+    pw = (-w) % mb
+    if ph == 0 and pw == 0:
+        return plane
+    return np.pad(plane, ((0, ph), (0, pw)), mode="edge")
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:

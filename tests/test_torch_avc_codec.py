@@ -204,17 +204,22 @@ UNPORTED = {
 
 
 def _intra8x8_stream():
-    """An IDR whose first MB is I_NxN with transform_size_8x8_flag = 1 (no
-    encoder of the repo emits one)."""
+    """An IDR of four I_NxN MBs with transform_size_8x8_flag = 1, each 8x8
+    predicted in its most probable mode, no residual (no encoder of the
+    repo emits one; tests/test_torch_avc_intra8x8.py writes fuller ones)."""
     from h264tpu_torch.avc.params import (assemble_stream,
                                           write_slice_header, SLICE_I)
+    from h264tpu_torch.avc.tables import CBP_TO_CODENUM_INTRA
     from h264tpu_torch.entropy.bitio import BitWriter
     p = AVCParams(width=32, height=32, profile_idc=100, transform_8x8=True)
     w = BitWriter()
     write_slice_header(w, p, SLICE_I, 0, True, p.qp)
-    w.ue(0)                                   # mb_type I_NxN
-    w.u(1, 1)                                 # transform_size_8x8_flag
-    w.u(0xFFFF, 16)                           # what an Intra 8x8 MB reads
+    for _ in range(4):
+        w.ue(0)                               # mb_type I_NxN
+        w.u(1, 1)                             # transform_size_8x8_flag
+        w.u(0xF, 4)                           # prev_intra8x8_pred_mode_flag x4
+        w.ue(0)                               # intra_chroma_pred_mode DC
+        w.ue(int(CBP_TO_CODENUM_INTRA[0]))    # coded_block_pattern 0
     w.u(1, 1)
     return assemble_stream(p, [(True, w.to_bytes())])
 
@@ -222,8 +227,13 @@ def _intra8x8_stream():
 @pytest.mark.parametrize("name", list(UNPORTED) + ["decoder_intra8x8"])
 def test_unported_option_raises(name):
     if name == "decoder_intra8x8":
-        with pytest.raises(NotImplementedError, match="Intra 8x8"):
-            AVCDecoder().decode(_intra8x8_stream())
+        # ported since: the decoder reads Intra 8x8 as the JAX decoder does
+        from h264tpu.avc.slice_dec import AVCDecoder as JDecoder
+        stream = _intra8x8_stream()
+        got, want = AVCDecoder().decode(stream), JDecoder().decode(stream)
+        assert len(got) == len(want) == 1
+        for c in range(3):
+            np.testing.assert_array_equal(got[0][c], want[0][c])
         return
     params, kwargs = UNPORTED[name]
     with pytest.raises(NotImplementedError):

@@ -455,3 +455,32 @@ def test_sharded_fractal_and_avc_on_a_card_mesh_equal_cpu():
     streams.append(DeviceAVCCodec(p, search_range=8, n_slices=3,
                                   device="cpu").encode_sequence(frames)[1])
     assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.gpu
+def test_cfg_file_entry_path_card_stream_equals_cpu_stream(tmp_path):
+    """encoder.cfg + a YUV file on disk -> FractalCodec at QCIF: the card's
+    stream equals the CPU's, and the card's launches are the P planes'."""
+    _need_card()
+    from h264tpu_torch.utils.config import config_from_cfg
+    from h264tpu_torch.utils.yuv import YUVReader, YUVWriter
+    cfg_path = tmp_path / "encoder.cfg"
+    cfg_path.write_text('InputFile = "qcif.yuv"  # a quoted string\n'
+                        "ImageWidth = 176\nImageHeight = 144\n"
+                        "I_Frame = 0\nFramesToBeEncoded = 4\n"
+                        "QPFirstFrame = 24\nQPRemainingFrame = 26\n"
+                        "Search_Range = 7\n")
+    cfg = config_from_cfg(str(cfg_path))
+    yuv = str(tmp_path / "qcif.yuv")
+    with YUVWriter(yuv) as w:
+        for fr in _blocky_frames(cfg.num_frames, cfg.height, cfg.width):
+            w.write(*fr)
+    reader = YUVReader(yuv, cfg.width, cfg.height)
+    frames = [reader.read(i) for i in range(len(reader))]
+    before = F.cross_cell_sums.launches
+    res, card = FractalCodec(cfg, device="cuda").encode_sequence(frames)
+    torch.cuda.synchronize()
+    assert F.cross_cell_sums.launches - before == 3 * (cfg.num_frames - 1)
+    _, cpu = FractalCodec(cfg, device="cpu").encode_sequence(frames)
+    assert card == cpu
+    assert [r.qp for r in res] == [24, 26, 26, 26]

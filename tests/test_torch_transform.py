@@ -53,6 +53,18 @@ def test_zigzag_and_coeff_cost(blocks):
                                   np.asarray(JT.coeff_cost_4x4(jnp.asarray(zz_j))))
 
 
+@pytest.mark.parametrize("name,shape", [("hadamard4x4_fwd", (4, 4)),
+                                        ("hadamard4x4_inv", (4, 4)),
+                                        ("hadamard2x2", (2, 2))])
+def test_hadamard_match(name, shape):
+    rng = np.random.default_rng(5)
+    dc = rng.integers(-4096, 4097, (200,) + shape).astype(np.int32)
+    got = getattr(TT, name)(_t(dc))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(getattr(JT, name)(jnp.asarray(dc))))
+
+
 def test_chroma_qp_all():
     assert [TT.chroma_qp(q) for q in range(52)] == \
         [JT.chroma_qp(q) for q in range(52)]

@@ -159,8 +159,8 @@ Phases, in order; any failure exits non-zero before the result line:
 Every mesh puts slot i on card ``i % torch.cuda.device_count()`` and prints
 how many distinct cards it spans.
 
-Stage times are spans between CUDA events that the codec itself records
-(``dispatch_frame(marks=)``, ``encode_region_frame(marks=)``).
+Stage times are the device times of the spans the codecs record themselves
+(``h264tpu_torch.trace``: ``fractal.*``, ``avc.scan.*``), summed by name.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Frames are made from ``--seed``: a
@@ -448,46 +448,58 @@ def fractal_decode_check(label: str, stream: bytes, results, masks=None):
     return dec_s
 
 
-P_STAGES = ("search", "fractal_recon", "residual", "deblock")
-CLASSIC_STAGES = ("full_search", "subpel", "mc_residual", "deblock")
-REGION_STAGES = ("region_search", "region_recon", "luma_residual",
-                 "chroma_fractal")
+# printed stage name -> the codec's span of it
+P_STAGES = {"search": "fractal.search", "fractal_recon": "fractal.recon",
+            "residual": "fractal.residual", "deblock": "fractal.deblock"}
+TILE_STAGES = {k: v.replace("fractal.", "fractal.tile.")
+               for k, v in P_STAGES.items()}
+CLASSIC_STAGES = {k: "fractal.classic." + k
+                  for k in ("full_search", "subpel", "mc_residual", "deblock")}
+REGION_STAGES = {"region_search": "fractal.region.search",
+                 "region_recon": "fractal.region.recon",
+                 "luma_residual": "fractal.region.residual",
+                 "chroma_fractal": "fractal.region.chroma"}
 
 
-def stage_ms(marks, names) -> dict:
-    """Device ms between consecutive CUDA events of ``marks``, the i-th
-    interval summed into ``names[i % len(names)]`` (one round of names per
-    plane)."""
-    check(len(marks) > 1 and (len(marks) - 1) % len(names) == 0,
-          f"{len(marks)} stage events for stages {names}")
-    marks[-1].synchronize()
-    totals = dict.fromkeys(names, 0.0)
-    for i in range(len(marks) - 1):
-        totals[names[i % len(names)]] += marks[i].elapsed_time(marks[i + 1])
+def traced(fn):
+    """(``fn()``, the records of the codecs' spans made during it): the
+    tracer is on for the call alone."""
+    from h264tpu_torch import trace
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    recs = trace.records()
+    trace.reset()
+    return out, recs
+
+
+def stage_ms(records, stages: dict) -> dict:
+    """Device ms of each stage: the spans named ``stages[key]`` summed
+    (over planes and tiles)."""
+    totals = dict.fromkeys(stages, 0.0)
+    for key, name in stages.items():
+        ms = [r["device_ms"] for r in records if r["name"] == name]
+        check(ms and None not in ms, f"no device span {name}")
+        totals[key] = sum(ms)
     return totals
 
 
-def start_marks():
-    import torch
-    marks = [torch.cuda.Event(enable_timing=True)]
-    marks[0].record()
-    return marks
-
-
 def p_frame_stages(codec, frame, ref, ref2=None):
-    """Device ms of each stage of one P frame (fractal or classic, as the
-    codec's config says), summed over its planes, from the CUDA events the
-    codec records in ``dispatch_frame(marks=)``; plus the host entropy
-    coding ms of ``finalize_frame``.  ``ref2`` is a 3-view side view's
-    second reference frame."""
-    import torch
+    """Device ms of each stage of one P frame (fractal, tiled or classic,
+    as the codec says), summed over its planes, from the spans the codec
+    records; plus the host entropy coding ms of ``finalize_frame``.
+    ``ref2`` is a 3-view side view's second reference frame."""
     from h264tpu_torch.models import fractal_codec as FC
     frame = FC._as_planes(frame, codec.device)
-    marks = start_marks()
-    pending = codec.dispatch_frame(frame, ref, 1, ref2=ref2, marks=marks)
-    torch.cuda.synchronize()
-    totals = stage_ms(marks, CLASSIC_STAGES if codec.cfg.inter_mode ==
-                      "classic" else P_STAGES)
+    pending, recs = traced(
+        lambda: codec.dispatch_frame(frame, ref, 1, ref2=ref2))
+    totals = stage_ms(recs, CLASSIC_STAGES if codec.cfg.inter_mode ==
+                      "classic" else TILE_STAGES
+                      if codec.mesh is not None and ref2 is None
+                      else P_STAGES)
     t0 = time.perf_counter()
     codec.finalize_frame(pending)
     totals["host_entropy"] = (time.perf_counter() - t0) * 1e3
@@ -746,9 +758,9 @@ def mb_lambda_me(codec, qp):
 def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
     """Device ms of each stage of one P frame (CUDA events around the calls
     ``device_enc.encode_frame`` makes) at ``qp`` (the frame QP or one per
-    slice), the second of two runs.  The
-    decision scan is its eager first step plus the graph replays of the
-    others; ``graph_capture`` is the interval between them, during which
+    slice), the second of two runs.  The decision scan's stages come from
+    its spans (:func:`scan_stages`): the eager first step, the graph
+    replays of the others and ``graph_capture`` between them, during which
     the card waits for the host to capture the step.  ``host_enqueue`` is
     the host clock from the first call to the return of the last, before
     the sync: when it nears the device span, the host has no time left to
@@ -763,9 +775,9 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
         *(torch.as_tensor(pl).cuda() for pl in ref_rec), sr))
     force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool, device="cuda")
     lam_me = mb_lambda_me(codec, qp)
-    for _ in range(2):
+
+    def run():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        marks = []
         t0 = time.perf_counter()
         ev[0].record()
         mv_int, _, pmv2 = DE._integer_search(
@@ -779,23 +791,32 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
         sym, st = DE.decide(y, u, v, ups, us, vs, mv_q.permute(2, 0, 1, 3),
                             sad_q.permute(2, 0, 1), qp, 1, force, sr=sr,
                             sb_h=p.mb_h // codec.n_slices, intra_only=False,
-                            marks=marks, **opts)
+                            **opts)
         ev[3].record()
         DE.prep_ref(*DE.assemble(sym, st, p.mb_h, p.mb_w)[0], sr)
         ev[4].record()
         host_ms = (time.perf_counter() - t0) * 1e3
         ev[4].synchronize()
-    check(len(marks) == 2, "the decision scan recorded no capture marks")
+        return ev, host_ms
+
+    run()
+    (ev, host_ms), recs = traced(run)
     return {"stage_a_search": ev[0].elapsed_time(ev[1]),
             "stage_b_subpel": ev[1].elapsed_time(ev[2]),
-            "decision_scan": ev[2].elapsed_time(marks[0])
-            + marks[1].elapsed_time(ev[3]),
-            "decision_first_step": ev[2].elapsed_time(marks[0]),
-            "decision_replays": marks[1].elapsed_time(ev[3]),
-            "graph_capture": marks[0].elapsed_time(marks[1]),
+            **scan_stages(recs, ev[2].elapsed_time(ev[3])),
             "prep_ref": ev[3].elapsed_time(ev[4]),
             "device_total": ev[0].elapsed_time(ev[4]),
             "host_enqueue": host_ms}
+
+
+def scan_stages(records, decide_ms: float) -> dict:
+    """The decision scan's stages from its spans: the eager first step, the
+    graph capture (the card waits for the host) and the replays; the scan
+    is the whole ``decide`` call (``decide_ms``) less the capture."""
+    got = stage_ms(records, {"decision_first_step": "avc.scan.eager",
+                             "graph_capture": "avc.scan.capture",
+                             "decision_replays": "avc.scan.replay"})
+    return {"decision_scan": decide_ms - got["graph_capture"], **got}
 
 
 def avc_profile(codec, frame, ref_rec, profile_dir=None):
@@ -1098,9 +1119,9 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
                          device="cuda")
     lam_me = mb_lambda_me(codec, qp)
     rows = mb_h // codec.n_slices
-    for _ in range(2):
+
+    def run():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        marks = []
         t0 = time.perf_counter()
         ev[0].record()
         found = []
@@ -1115,23 +1136,21 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
             ev[2 + 2 * li].record()
             found += [mv_q[:, 0].permute(1, 0, 2), sad_q[:, 0].permute(1, 0)]
         sym, st = DE.decide_b(y, u, v, refs[0], refs[1], *found, col_mv,
-                              col_ref, qp, 1, 1, sr=sr, sb_h=rows,
-                              marks=marks)
+                              col_ref, qp, 1, 1, sr=sr, sb_h=rows)
         ev[5].record()
         DE.prep_ref(*DE.assemble_b(sym, st, mb_h, mb_w)[0], sr)
         ev[6].record()
         host_ms = (time.perf_counter() - t0) * 1e3
         ev[6].synchronize()
-    check(len(marks) == 2, "the B decision scan recorded no capture marks")
+        return ev, host_ms
+
+    run()
+    (ev, host_ms), recs = traced(run)
     return {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
             "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
             "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
             "stage_b_subpel_l1": ev[3].elapsed_time(ev[4]),
-            "decision_scan": ev[4].elapsed_time(marks[0])
-            + marks[1].elapsed_time(ev[5]),
-            "decision_first_step": ev[4].elapsed_time(marks[0]),
-            "decision_replays": marks[1].elapsed_time(ev[5]),
-            "graph_capture": marks[0].elapsed_time(marks[1]),
+            **scan_stages(recs, ev[4].elapsed_time(ev[5])),
             "prep_ref": ev[5].elapsed_time(ev[6]),
             "device_total": ev[0].elapsed_time(ev[6]),
             "host_enqueue": host_ms}
@@ -1794,7 +1813,6 @@ def phase_fractal_region_cif(seed: int):
     the first 4 masks all hold the object); 1 I + 3 R of those frames,
     decoded with the masks bit-exactly; the region frame's interval and its
     device stages."""
-    import torch
     from h264tpu_torch.models import fractal_codec as FC
     from h264tpu_torch.ops import segment as SG
     H, W = 288, 352
@@ -1811,12 +1829,10 @@ def phase_fractal_region_cif(seed: int):
     check([r.frame_type for r in results] == ["I", "R", "R", "R"],
           "fractal region: unexpected frame types")
     dec_s = fractal_decode_check("fractal region cif", stream, results, masks)
-    marks = start_marks()
-    codec.encode_region_frame(FC._as_planes(frames[1], codec.device),
-                              results[0].recon_dev, masks[1], masks[0],
-                              marks=marks)
-    torch.cuda.synchronize()
-    stages = stage_ms(marks, REGION_STAGES)
+    _, recs = traced(lambda: codec.encode_region_frame(
+        FC._as_planes(frames[1], codec.device), results[0].recon_dev,
+        masks[1], masks[0]))
+    stages = stage_ms(recs, REGION_STAGES)
     print(f"[fractal region cif] segmentation of 7 frames {seg_ms:.1f} ms; "
           f"object pixels per mask {obj}; bits {[r.bits for r in results]}; "
           f"1 I + 3 R {seq_s:.3f} s, region frame interval {p_ms:.1f} ms; "

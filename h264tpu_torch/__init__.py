@@ -29,15 +29,6 @@ def resolve_device(device) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def mark(marks, device):
-    """On CUDA, append to ``marks`` (a list) a CUDA event recorded now on
-    ``device``'s current stream, so that a caller can time the device
-    stages between them; on another device, do nothing."""
-    if marks is not None and device.type == "cuda":
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record(torch.cuda.current_stream(device))
-
-
 _CONSTS: dict = {}
 
 

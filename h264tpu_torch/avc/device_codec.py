@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, trace
 from . import conformance
 from . import device_enc as DE
 from . import native as AN
@@ -260,9 +260,11 @@ class DeviceAVCCodec:
                      .to(self.device).to(torch.int32) for pl in yuv)
 
     def prep(self, rec8):
-        """``prep_ref`` of a deblocked (Y, U, V) uint8 reconstruction."""
-        return DE.prep_ref(*(torch.as_tensor(pl).to(self.device)
-                             for pl in rec8), self.sr)
+        """``prep_ref`` of a deblocked (Y, U, V) uint8 reconstruction (span
+        ``avc.prep``)."""
+        with trace.span("avc.prep", self.device):
+            return DE.prep_ref(*(torch.as_tensor(pl).to(self.device)
+                                 for pl in rec8), self.sr)
 
     def encode_frame(self, yuv, refs, qp, force=None, n_refs=None, wp=None):
         """Device encode of one frame against ``refs`` (a list of
@@ -272,27 +274,28 @@ class DeviceAVCCodec:
         (``estimate_wp``'s dict, one ``l0`` entry per stacked reference):
         each reference's luma planes are weighted here, its chroma weights
         go to the decision scan.  Returns the device (sym, rec, ctx) of
-        ``device_enc.encode_frame``."""
-        p = self.p
-        y, u, v = self.planes(yuv)
-        if force is None:
-            force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
-                                device=self.device)
-        if not refs:
-            return self._encode_fn(True)(y, u, v, *self._dummy_refs(), qp, 0,
-                                         force)
-        R = max(p.num_ref_frames, 1) if n_refs is None else n_refs
-        n_valid = min(len(refs), R)
-        sel = [refs[min(i, n_valid - 1)] for i in range(R)]
-        stacks = [torch.stack([r[k] for r in sel]) for k in range(3)]
-        wp_c = None
-        if wp is not None:
-            stacks[0] = torch.stack([DE.weight_luma(r[0], e[0], e[1])
-                                     for r, e in zip(sel, wp["l0"])])
-            wp_c = torch.as_tensor(np.array([e[2:6] for e in wp["l0"]],
-                                            np.int32)).to(self.device)
-        return self._encode_fn(False)(y, u, v, *stacks, qp, n_valid, force,
-                                      wp_c)
+        ``device_enc.encode_frame``.  Span: ``avc.frame``."""
+        with trace.span("avc.frame", self.device):
+            p = self.p
+            y, u, v = self.planes(yuv)
+            if force is None:
+                force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
+                                    device=self.device)
+            if not refs:
+                return self._encode_fn(True)(y, u, v, *self._dummy_refs(),
+                                             qp, 0, force)
+            R = max(p.num_ref_frames, 1) if n_refs is None else n_refs
+            n_valid = min(len(refs), R)
+            sel = [refs[min(i, n_valid - 1)] for i in range(R)]
+            stacks = [torch.stack([r[k] for r in sel]) for k in range(3)]
+            wp_c = None
+            if wp is not None:
+                stacks[0] = torch.stack([DE.weight_luma(r[0], e[0], e[1])
+                                         for r, e in zip(sel, wp["l0"])])
+                wp_c = torch.as_tensor(np.array([e[2:6] for e in wp["l0"]],
+                                                np.int32)).to(self.device)
+            return self._encode_fn(False)(y, u, v, *stacks, qp, n_valid, force,
+                                          wp_c)
 
     def encode_sequence(self, frames, qp: int = None, verbose: bool = False,
                         force_intra=None, rate_control=None):
@@ -307,7 +310,10 @@ class DeviceAVCCodec:
         per-unit MAD), each slice header carries its own slice_qp_delta,
         and the frame QP is their rounded mean.  B sequences
         (``bframes``) take no rate control, as in ``TPUAVCCodec``: the
-        controller is not consulted there."""
+        controller is not consulted there.  Each call is one ``trace``
+        sequence (frames taken as the iterator yields them, done once
+        packed); the host spans are ``avc.wait`` (the symbols' and the
+        reconstruction's downloads), ``avc.host_deblock`` and ``avc.pack``."""
         p = self.p
         qp = p.qp if qp is None else qp
         if self.bframes > 0:
@@ -327,9 +333,10 @@ class DeviceAVCCodec:
         dpb_means, dpb_recs = [], []   # per-entry (dc_y, dc_u, dc_v); rec8s
         frame_num = idr_pic_id = 0
         pending = None
+        seq = trace.sequence()
 
-        def finalize(pend):
-            t0 = time.perf_counter()
+        def pack(pend):
+            """The slices of frame ``pend``."""
             sym = pend["sym"]
             fqps = pend["qps"]
             if pend["idr"] and p.cabac:
@@ -361,7 +368,13 @@ class DeviceAVCCodec:
                                        pend["n_valid"], row0=s * rows,
                                        n_rows=rows, wp=pend["wp"])
                          for s in range(self.n_slices)]
-            self.host_ms["pack"].append((time.perf_counter() - t0) * 1e3)
+            return rbsps
+
+        def finalize(pend):
+            with trace.span("avc.pack", frame=(seq, pend["idx"])):
+                t0 = time.perf_counter()
+                rbsps = pack(pend)
+                self.host_ms["pack"].append((time.perf_counter() - t0) * 1e3)
             slices.extend((pend["idr"], rb) for rb in rbsps)
             res = AVCFrameResult(
                 frame_type=pend["ftype"],
@@ -369,6 +382,7 @@ class DeviceAVCCodec:
                          for x in (rb if isinstance(rb, tuple) else (rb,))) * 8,
                 psnr_y=pend["psnr_y"], recon=pend["rec8"])
             results.append(res)
+            trace.frame_done(seq, pend["idx"], pend["ftype"])
             if verbose:
                 print(f"frame {pend['idx']:3d} {pend['ftype']:3s} "
                       f"bits {res.bits:7d} PSNR-Y {res.psnr_y:6.2f}")
@@ -382,6 +396,7 @@ class DeviceAVCCodec:
                       ftype="P" if pend["ftype"] == "P" else "I")
 
         for idx, yuv in enumerate(frames):
+            trace.frame_taken(seq, idx)
             idr = self._is_idr(idx)
             qp_s = None                      # per-slice QPs (basic-unit RC)
             if rc is not None and idx > 0:
@@ -423,14 +438,17 @@ class DeviceAVCCodec:
             # pack the previous frame once this frame's work is queued
             if pending is not None:
                 finalize(pending)
-            sym_np = host_symbols(sym)
-            ctx_np, rec_np = host_context(tctx, rec)
+            with trace.span("avc.wait"):
+                sym_np = host_symbols(sym)
+                ctx_np, rec_np = host_context(tctx, rec)
             if p.deblock:
-                t0 = time.perf_counter()
-                ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
-                                      p.chroma_qp_offset, idr, qp_s)
-                rec_np = AN.deblock_frame(*rec_np, ctx)
-                self.host_ms["deblock"].append((time.perf_counter() - t0) * 1e3)
+                with trace.span("avc.host_deblock"):
+                    t0 = time.perf_counter()
+                    ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
+                                          p.chroma_qp_offset, idr, qp_s)
+                    rec_np = AN.deblock_frame(*rec_np, ctx)
+                    self.host_ms["deblock"].append(
+                        (time.perf_counter() - t0) * 1e3)
             rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
             dpb.insert(0, self.prep(rec8))
             dpb = dpb[:R]
@@ -472,7 +490,9 @@ class DeviceAVCCodec:
         previous anchor alone.  The stream is in decode order, the results
         in display order.  Like ``TPUAVCCodec``'s B sequences it takes no
         rate control: ``encode_sequence`` hands the call here before it
-        reads ``rate_control``, so a controller is never consulted."""
+        reads ``rate_control``, so a controller is never consulted.  One
+        ``trace`` sequence: a frame is taken when its encode starts (the
+        frames are read in whole first) and done once packed."""
         p = self.p
         frames = list(frames)
         n = len(frames)
@@ -487,11 +507,14 @@ class DeviceAVCCodec:
         packi = PKC.pack_i_slice_cabac if p.cabac else PK.pack_i_slice
         packp = PKC.pack_p_slice_cabac if p.cabac else PK.pack_p_slice
         packb = PKC.pack_b_slice_cabac if p.cabac else PK.pack_b_slice
+        seq = trace.sequence()
+        spans = dict(pack="avc.pack", deblock="avc.host_deblock")
 
         def timed(key, fn, *a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
+            with trace.span(spans[key]):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
             return out
 
         def pack_slices(fn, *a, **kw):
@@ -507,6 +530,7 @@ class DeviceAVCCodec:
                 frame_type=ftype, bits=sum(len(rb) for rb in rbsps) * 8,
                 psnr_y=99.99 if mse == 0 else
                 float(10 * np.log10(255.0 ** 2 / mse)), recon=rec8)
+            trace.frame_done(seq, disp, ftype)
             if verbose:
                 print(f"frame {disp:3d} {ftype:3s} bits "
                       f"{results[disp].bits:7d} PSNR-Y "
@@ -515,6 +539,7 @@ class DeviceAVCCodec:
 
         def encode_b(disp, prep0, poc0, prep1, poc1, col_motion, fqp,
                      ref_pic=False):
+            trace.frame_taken(seq, disp)
             y, u, v = self.planes(frames[disp])
             col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32)).to(
                 self.device) for a in col_motion)
@@ -546,6 +571,7 @@ class DeviceAVCCodec:
         prev = None
         pending_bref_fn = None
         for a in anchors:
+            trace.frame_taken(seq, a)
             fqp = qp
             if a == 0:
                 sym, rec, tctx = self.encode_frame(frames[a], [], fqp)

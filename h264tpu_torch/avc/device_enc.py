@@ -48,7 +48,7 @@ import threading
 import numpy as np
 import torch
 
-from .. import device_const
+from .. import device_const, trace
 from ..parallel.mesh import gather
 from ..ops.me import sixtap_phases, edge_pad
 from ..ops.transform import COEFF_COST
@@ -1445,33 +1445,33 @@ def _capture(step, t_dev):
     return graph, out
 
 
-def _scan(step, T: int, dev, marks=None) -> list:
+def _scan(step, T: int, dev) -> list:
     """Run the ``T`` wavefront steps of a decision scan: ``step(t)`` with a
     0-dim int64 step index on the device, returning a dict of per-lane
     symbols.  On CUDA every step launches the same kernels on the same
     shapes: step 0 runs eagerly (so every constant table is on the card),
     one step is captured into a CUDA graph (:func:`_capture`) and replayed
-    for the others.  ``marks``: a list; on CUDA, CUDA events are appended
-    after the eager first step and after the capture."""
+    for the others.  Spans: ``avc.scan.eager`` (step 0),
+    ``avc.scan.capture`` (the card waits while the host captures) and
+    ``avc.scan.replay`` (steps 1 to T - 1 with their output clones; eager
+    steps off the card)."""
     t_dev = torch.zeros((), dtype=torch.int64, device=dev)
-    ys = [step(t_dev)]
+    with trace.span("avc.scan.eager", dev):
+        ys = [step(t_dev)]
     if dev.type == "cuda" and T > 1:
-        if marks is not None:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-        graph, out = _capture(step, t_dev)
-        if marks is not None:
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-        for t in range(1, T):
-            t_dev.fill_(t)
-            graph.replay()
-            ys.append({k: v.clone() for k, v in out.items()})
+        with trace.span("avc.scan.capture", dev):
+            graph, out = _capture(step, t_dev)
+        with trace.span("avc.scan.replay", dev):
+            for t in range(1, T):
+                t_dev.fill_(t)
+                graph.replay()
+                ys.append({k: v.clone() for k, v in out.items()})
         del graph
     else:
-        for t in range(1, T):
-            t_dev.fill_(t)
-            ys.append(step(t_dev))
+        with trace.span("avc.scan.replay", dev):
+            for t in range(1, T):
+                t_dev.fill_(t)
+                ys.append(step(t_dev))
     return ys
 
 
@@ -1492,7 +1492,7 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
            qp, n_valid: int, force_intra, *, sr: int, sb_h: int,
            intra_only: bool, chroma_qp_offset: int = 0,
            transform8: bool = False, sub8x8: bool = False,
-           scaling_default: bool = False, wp_c=None, marks=None):
+           scaling_default: bool = False, wp_c=None):
     """The wavefront decision scan over every row-band slice at once.
 
     An MB depends on its left, top and top-right neighbours only, so the
@@ -1502,12 +1502,8 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
     context, so each band keeps its own state.  ``qp``: the frame QP or one
     QP per slice, as one per-lane tensor through every step
     (:func:`_lane_cfg`); ``wp_c``: the chroma WP weights.  Returns (sym
-    dict of [nmb, ...] tensors in raster order, band state dict).
-
-    ``marks``: a list; on CUDA, two CUDA events are appended to it, recorded
-    after the eager first step and after the graph capture, so that a
-    caller can time the capture (the card waits for the host) apart from
-    the steps."""
+    dict of [nmb, ...] tensors in raster order, band state dict).  The
+    steps run in :func:`_scan`'s spans."""
     dev = org_y.device
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
@@ -1563,7 +1559,7 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
             st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
         return out
 
-    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev, marks)
+    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev)
     # MB (row, c) ran at step c + 2 * (row % sb_h) in lane row
     rows = _ar(mb_h * mb_w, dev) // mb_w
     t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
@@ -1622,9 +1618,10 @@ def encode_frame(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
 def _encode_bands(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
                   n_valid: int, force_intra, wp_c=None, *, sr: int,
                   n_slices: int, intra_only: bool, sub8x8: bool, **opts):
-    """Stages A and B, then the decision scan, of the ``n_slices`` row
-    bands of a picture (or of one mesh slot's bands): (sym, band state) of
-    :func:`decide`; ``opts`` are its High-profile and chroma options."""
+    """Stages A and B (span ``avc.search``), then the decision scan, of the
+    ``n_slices`` row bands of a picture (or of one mesh slot's bands):
+    (sym, band state) of :func:`decide`; ``opts`` are its High-profile and
+    chroma options."""
     mb_h, mb_w = org_y.shape[0] // 16, org_y.shape[1] // 16
     R = ref_ups.shape[0]
     nmb = mb_h * mb_w
@@ -1635,7 +1632,8 @@ def _encode_bands(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
         sad_q = torch.zeros((nmb, R, ns), dtype=torch.int32,
                             device=org_y.device)
     else:
-        mv_q, sad_q = search(org_y, ref_ups, sr, qp, n_slices, sub8x8)
+        with trace.span("avc.search", org_y.device):
+            mv_q, sad_q = search(org_y, ref_ups, sr, qp, n_slices, sub8x8)
     return decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
                   qp, n_valid, force_intra, sr=sr, sb_h=mb_h // n_slices,
                   intra_only=intra_only, sub8x8=sub8x8, wp_c=wp_c, **opts)
@@ -1886,10 +1884,10 @@ def _mb_compute_b(st, lc, fr0, fr1, mv0_mb, sad0_mb, mv1_mb, sad1_mb, col,
 
 def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
              col_mv, col_ref, qp, nv0: int, nv1: int, *, sr: int,
-             sb_h: int, chroma_qp_offset: int = 0, marks=None):
+             sb_h: int, chroma_qp_offset: int = 0):
     """The B frame's wavefront decision scan over every row-band slice at
     once, stepped like :func:`decide` (one step eager, the others replayed
-    from one CUDA graph on the card; ``marks`` as there).
+    from one CUDA graph on the card, in :func:`_scan`'s spans).
 
     r0/r1: (ups, us, vs) reference stacks of lists 0 and 1; mv*_q [nmb, R,
     2] / sad*_q [nmb, R] the 16x16 search results of each list; col_mv
@@ -1950,7 +1948,7 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
             st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
         return out
 
-    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev, marks)
+    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev)
     rows = _ar(mb_h * mb_w, dev) // mb_w
     t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
     sym = {k: torch.stack([y[k] for y in ys])[t_idx, rows] for k in ys[0]}
@@ -1983,11 +1981,13 @@ def _encode_bands_b(org_y, org_u, org_v, r0, r1, col_mv, col_ref, qp,
                     chroma_qp_offset: int = 0):
     """Both lists' Stages A and B over the 16x16 slot, then the B decision
     scan, of the ``n_slices`` row bands of a picture (or of one mesh slot's
-    bands); r0/r1 the (ups, us, vs) stacks.  Returns (sym, band state)."""
-    (mv0_q, sad0_q), (mv1_q, sad1_q) = (
-        tuple(x[:, :, 0] for x in search(org_y, r[0], sr, qp, n_slices,
-                                          only16=True))
-        for r in (r0, r1))
+    bands); r0/r1 the (ups, us, vs) stacks (span ``avc.search`` around
+    both lists' stages).  Returns (sym, band state)."""
+    with trace.span("avc.search", org_y.device):
+        (mv0_q, sad0_q), (mv1_q, sad1_q) = (
+            tuple(x[:, :, 0] for x in search(org_y, r[0], sr, qp, n_slices,
+                                              only16=True))
+            for r in (r0, r1))
     return decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q,
                     sad1_q, col_mv, col_ref, qp, nv0, nv1, sr=sr,
                     sb_h=org_y.shape[0] // 16 // n_slices,

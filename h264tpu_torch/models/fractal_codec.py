@@ -32,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import resolve_device, mark as _mark
+from .. import resolve_device, trace
 from ..utils.config import CodecConfig
 from ..utils.yuv import psnr
 from ..ops import fractal as F
@@ -67,8 +67,10 @@ def _pad16(plane: torch.Tensor) -> torch.Tensor:
 
 
 def _as_planes(planes, device) -> tuple:
-    """(Y, U, V) as int32 tensors on ``device`` from numpy arrays or tensors."""
-    return tuple(_as_tensor(p, device) for p in planes)
+    """(Y, U, V) as int32 tensors on ``device`` from numpy arrays or tensors
+    (span ``fractal.upload``: numpy planes are a blocking pageable copy)."""
+    with trace.span("fractal.upload", device):
+        return tuple(_as_tensor(p, device) for p in planes)
 
 
 def _as_tensor(a, device) -> torch.Tensor:
@@ -161,84 +163,86 @@ class FractalCodec:
         return modes_l, zzs, outs
 
     # -- fractal P step -----------------------------------------------------
-    def _p_plane(self, org, ref, qp, is_luma, ref2=None, marks=None):
-        """One fractal P plane; ``marks`` (see :func:`_mark`) gets an event
-        after the search, the fractal reconstruction, the residual coding
-        and the deblock."""
+    def _p_plane(self, org, ref, qp, is_luma, ref2=None):
+        """One fractal P plane, in the spans ``fractal.search``,
+        ``fractal.recon``, ``fractal.residual`` and ``fractal.deblock``."""
         h, w = org.shape
+        dev = org.device
         orgp = _pad16(org)
         refp = _pad16(ref)
         ref2p = None if ref2 is None else _pad16(ref2)
         hp, wp = orgp.shape
-        tree = F.search_plane(orgp, refp, **self._search_kw,
-                              extra_ref_ctx=ref2p)
-        _mark(marks, org.device)
-        maps = F.leaf_maps(tree, hp, wp)
-        frec = F.reconstruct_from_maps(maps, refp, hp, wp,
-                                       self.cfg.fractal.use_halfpel_refs,
-                                       ref2p)[:h, :w]
-        _mark(marks, org.device)
-        zz, rec = T.residual_code_plane(org, frec, qp, is_luma)
-        _mark(marks, org.device)
+        with trace.span("fractal.search", dev):
+            tree = F.search_plane(orgp, refp, **self._search_kw,
+                                  extra_ref_ctx=ref2p)
+        with trace.span("fractal.recon", dev):
+            maps = F.leaf_maps(tree, hp, wp)
+            frec = F.reconstruct_from_maps(maps, refp, hp, wp,
+                                           self.cfg.fractal.use_halfpel_refs,
+                                           ref2p)[:h, :w]
+        with trace.span("fractal.residual", dev):
+            zz, rec = T.residual_code_plane(org, frec, qp, is_luma)
         if self.cfg.deblock:
-            nz = (zz != 0).any(dim=-1).reshape(h // 4, w // 4)
-            bs_v, bs_h = DB.strengths_fractal(
-                {k: m[:h // 4, :w // 4] for k, m in maps.items()}, nz)
-            rec = DB.deblock_plane_grouped(rec, bs_v, bs_h, qp, is_luma,
-                                           self._groups)
-        _mark(marks, org.device)
+            with trace.span("fractal.deblock", dev):
+                nz = (zz != 0).any(dim=-1).reshape(h // 4, w // 4)
+                bs_v, bs_h = DB.strengths_fractal(
+                    {k: m[:h // 4, :w // 4] for k, m in maps.items()}, nz)
+                rec = DB.deblock_plane_grouped(rec, bs_v, bs_h, qp, is_luma,
+                                               self._groups)
         return maps, zz, rec
 
-    def _p_step(self, y, u, v, ref_y, ref_u, ref_v, qp, ref2=None,
-                marks=None):
+    def _p_step(self, y, u, v, ref_y, ref_u, ref_v, qp, ref2=None):
         cqp = T.chroma_qp(qp)
         r2 = (None, None, None) if ref2 is None else ref2
         all_maps, zzs, recs = [], [], []
         for org, ref, q, is_luma, x2 in ((y, ref_y, qp, True, r2[0]),
                                          (u, ref_u, cqp, False, r2[1]),
                                          (v, ref_v, cqp, False, r2[2])):
-            maps, zz, rec = self._p_plane(org, ref, q, is_luma, x2, marks)
+            maps, zz, rec = self._p_plane(org, ref, q, is_luma, x2)
             all_maps.append(maps)
             zzs.append(zz)
             recs.append(rec)
         return all_maps, zzs, recs
 
     # -- classic H.264-style inter step (ops/me.py) --------------------------
-    def _c_step(self, y, u, v, ref_y, ref_u, ref_v, qp, marks=None):
-        """One classic P frame; ``marks`` (see :func:`_mark`) gets an event
-        after the full search, the sub-pel refinement, motion compensation
-        with residual coding of the three planes, and the deblock."""
+    def _c_step(self, y, u, v, ref_y, ref_u, ref_v, qp):
+        """One classic P frame, in the spans ``fractal.classic.full_search``,
+        ``.subpel``, ``.mc_residual`` (motion compensation and residual
+        coding of the three planes) and ``.deblock``."""
         cqp = T.chroma_qp(qp)
         lam = 1  # flat MV-cost weight, as in the reference
         h, w = y.shape
-        me0 = ME.full_search_int(y, ref_y, 16, self.cfg.me_search_range, lam)
-        _mark(marks, y.device)
-        up_y = ME.sixtap_halfpel(ref_y)
-        me1 = ME.subpel_refine(y, up_y, me0, 16, lam)
-        _mark(marks, y.device)
-        pred_y = ME.motion_compensate(up_y, me1.mv_x, me1.mv_y, 16, h, w)
-        zz_y, rec_y = T.residual_code_plane(y, pred_y, qp, True)
-        zzs, recs = [zz_y], [rec_y]
-        mv_c = (me1.mv_x >> 1, me1.mv_y >> 1)   # luma 1/4 pel -> chroma
-        for org, ref in ((u, ref_u), (v, ref_v)):
-            hc, wc = org.shape
-            pred = ME.motion_compensate(ME.sixtap_halfpel(ref), *mv_c, 8,
-                                        hc, wc)
-            zz, rec = T.residual_code_plane(org, pred, cqp, False)
-            zzs.append(zz)
-            recs.append(rec)
-        _mark(marks, y.device)
+        dev = y.device
+        with trace.span("fractal.classic.full_search", dev):
+            me0 = ME.full_search_int(y, ref_y, 16, self.cfg.me_search_range,
+                                     lam)
+        with trace.span("fractal.classic.subpel", dev):
+            up_y = ME.sixtap_halfpel(ref_y)
+            me1 = ME.subpel_refine(y, up_y, me0, 16, lam)
+        with trace.span("fractal.classic.mc_residual", dev):
+            pred_y = ME.motion_compensate(up_y, me1.mv_x, me1.mv_y, 16, h, w)
+            zz_y, rec_y = T.residual_code_plane(y, pred_y, qp, True)
+            zzs, recs = [zz_y], [rec_y]
+            mv_c = (me1.mv_x >> 1, me1.mv_y >> 1)   # luma 1/4 pel -> chroma
+            for org, ref in ((u, ref_u), (v, ref_v)):
+                hc, wc = org.shape
+                pred = ME.motion_compensate(ME.sixtap_halfpel(ref), *mv_c, 8,
+                                            hc, wc)
+                zz, rec = T.residual_code_plane(org, pred, cqp, False)
+                zzs.append(zz)
+                recs.append(rec)
         if self.cfg.deblock:
             # the reference's encoder deblocks the whole plane (no row
             # bands), its decoder by cfg.tile_rows bands: with tile_rows > 1
             # the two differ, and the port keeps both as they are
-            for i, (mvs, cell, q, luma) in enumerate((
-                    ((me1.mv_x, me1.mv_y), 4, qp, True),
-                    (mv_c, 2, cqp, False), (mv_c, 2, cqp, False))):
-                ph, pw = recs[i].shape
-                bs_v, bs_h = _classic_strengths(zzs[i], *mvs, cell, ph, pw)
-                recs[i] = DB.deblock_plane(recs[i], bs_v, bs_h, q, luma)
-        _mark(marks, y.device)
+            with trace.span("fractal.classic.deblock", dev):
+                for i, (mvs, cell, q, luma) in enumerate((
+                        ((me1.mv_x, me1.mv_y), 4, qp, True),
+                        (mv_c, 2, cqp, False), (mv_c, 2, cqp, False))):
+                    ph, pw = recs[i].shape
+                    bs_v, bs_h = _classic_strengths(zzs[i], *mvs, cell, ph,
+                                                    pw)
+                    recs[i] = DB.deblock_plane(recs[i], bs_v, bs_h, q, luma)
         return (me1.mv_x, me1.mv_y), zzs, recs
 
     # -- frame / sequence ----------------------------------------------------
@@ -249,98 +253,109 @@ class FractalCodec:
         return ip > 0 and frame_idx % ip == 0
 
     def dispatch_frame(self, yuv, ref=None, frame_idx: int = 0,
-                       qp: int = None, ref2=None, marks=None) -> dict:
-        """Queue all device work for one frame; returns a pending handle.
+                       qp: int = None, ref2=None) -> dict:
+        """Queue all device work for one frame (span ``fractal.frame``);
+        returns a pending handle.
 
         The host does not wait here: the frame's host-bound outputs are
         copied to pinned memory behind an event that :meth:`finalize_frame`
         waits on.  ``ref`` (and ``ref2``, the second reference frame of a
         3-view side view) may be numpy (uint8 or int32) or device tensors;
-        ``qp`` overrides the config's (rate control); ``marks`` collects
-        the CUDA events of a P frame's stages (``_p_plane``, ``_c_step``;
-        on a mesh, the four stages of every tile of every plane).
+        ``qp`` overrides the config's (rate control).
         """
-        orgs = _as_planes(yuv, self.device)
-        dims = [tuple(p.shape) for p in orgs]
-        intra = self.is_intra(frame_idx) or ref is None
-        if qp is None:
-            qp = self.cfg.qp_i if intra else self.cfg.qp
-        qp = int(qp)
-        classic = not intra and self.cfg.inter_mode == "classic"
+        with trace.span("fractal.frame", self.device):
+            orgs = _as_planes(yuv, self.device)
+            dims = [tuple(p.shape) for p in orgs]
+            intra = self.is_intra(frame_idx) or ref is None
+            if qp is None:
+                qp = self.cfg.qp_i if intra else self.cfg.qp
+            qp = int(qp)
+            classic = not intra and self.cfg.inter_mode == "classic"
 
-        host = {}
-        if intra:
-            kind = "i"
-            modes_l, zzs, recs = self._i_step(*orgs, qp)
-            for i in range(3):
-                host[f"{i}_modes"] = modes_l[i]
-        elif classic:
-            kind = "c"
-            (host["mvx"], host["mvy"]), zzs, recs = self._c_step(
-                *orgs, *_as_planes(ref, self.device), qp, marks)
-        else:
-            kind = "p"
-            refs = _as_planes(ref, self.device)
-            if self.mesh is not None and ref2 is None:
-                maps_b, zzs_b, recs_b = self._tiled(
-                    *(p[None] for p in orgs + refs), qp, marks=marks)
-                maps = [{k: m[0] for k, m in d.items()} for d in maps_b]
-                zzs = [z[0] for z in zzs_b]
-                recs = [r[0] for r in recs_b]
+            host = {}
+            if intra:
+                kind = "i"
+                with trace.span("fractal.intra", self.device):
+                    modes_l, zzs, recs = self._i_step(*orgs, qp)
+                for i in range(3):
+                    host[f"{i}_modes"] = modes_l[i]
+            elif classic:
+                kind = "c"
+                (host["mvx"], host["mvy"]), zzs, recs = self._c_step(
+                    *orgs, *_as_planes(ref, self.device), qp)
             else:
-                # the 3-view side views (ref2) keep the unsharded step: the
-                # tiled step has no second reference
-                r2 = None if ref2 is None else _as_planes(ref2, self.device)
-                maps, zzs, recs = self._p_step(*orgs, *refs, qp, ref2=r2,
-                                               marks=marks)
+                kind = "p"
+                refs = _as_planes(ref, self.device)
+                if self.mesh is not None and ref2 is None:
+                    maps_b, zzs_b, recs_b = self._tiled(
+                        *(p[None] for p in orgs + refs), qp)
+                    maps = [{k: m[0] for k, m in d.items()} for d in maps_b]
+                    zzs = [z[0] for z in zzs_b]
+                    recs = [r[0] for r in recs_b]
+                else:
+                    # the 3-view side views (ref2) keep the unsharded step:
+                    # the tiled step has no second reference
+                    r2 = None if ref2 is None else \
+                        _as_planes(ref2, self.device)
+                    maps, zzs, recs = self._p_step(*orgs, *refs, qp,
+                                                   ref2=r2)
+                for i in range(3):
+                    for f in _MAP_KEYS:
+                        host[f"{i}_{f}"] = maps[i][f]
             for i in range(3):
-                for f in _MAP_KEYS:
-                    host[f"{i}_{f}"] = maps[i][f]
-        for i in range(3):
-            host[f"{i}_zz"] = zzs[i]
-            host[f"{i}_rec"] = recs[i].to(torch.uint8)
-            host[f"{i}_sse"] = ((recs[i] - orgs[i]).to(torch.int64) ** 2).sum()
-        ready = None
-        if self.device.type == "cuda":
-            pinned = {}
-            for k, t in host.items():
-                pinned[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                pinned[k].copy_(t, non_blocking=True)
-            host = pinned
-            ready = torch.cuda.Event()
-            ready.record()
-        return dict(intra=intra, kind=kind, dims=dims, host=host, ready=ready,
-                    recs=tuple(recs), qp=qp, dual_ref=ref2 is not None)
+                host[f"{i}_zz"] = zzs[i]
+                host[f"{i}_rec"] = recs[i].to(torch.uint8)
+                host[f"{i}_sse"] = ((recs[i] - orgs[i]).to(torch.int64)
+                                    ** 2).sum()
+            ready = None
+            if self.device.type == "cuda":
+                pinned = {}
+                for k, t in host.items():
+                    pinned[k] = torch.empty(t.shape, dtype=t.dtype,
+                                            pin_memory=True)
+                    pinned[k].copy_(t, non_blocking=True)
+                host = pinned
+                ready = torch.cuda.Event()
+                ready.record()
+            return dict(intra=intra, kind=kind, dims=dims, host=host,
+                        ready=ready, recs=tuple(recs), qp=qp,
+                        dual_ref=ref2 is not None)
 
     def finalize_frame(self, pending: dict):
-        """Wait for the frame's host copy and entropy-code it.
+        """Wait for the frame's host copy (span ``fractal.wait``) and
+        entropy-code it (``fractal.entropy``); both spans belong to the
+        pending frame (``pending["frame"]``, set by :meth:`encode_sequence`),
+        not to the frame being dispatched meanwhile.
 
         Returns (FrameResult, payload bytes)."""
         cfg = self.cfg
         kind = pending["kind"]
         dims = pending["dims"]
+        frame = pending.get("frame")
         if pending["ready"] is not None:
-            pending["ready"].synchronize()
+            with trace.span("fractal.wait", frame=frame):
+                pending["ready"].synchronize()
         h = {k: t.numpy() for k, t in pending["host"].items()}
 
-        w = BitWriter()
-        w.u({"i": 0, "p": 1, "c": 2}[kind], 8)
-        w.u(int(pending["qp"]), 8)
-        for i, (ph, pw) in enumerate(dims):
-            if kind == "i":
-                FS.write_intra_modes(w, h[f"{i}_modes"])
-            elif kind == "c":
-                if i == 0:
-                    w.se(h["mvx"].reshape(-1))
-                    w.se(h["mvy"].reshape(-1))
-            else:
-                FS.write_tree(w, {f: h[f"{i}_{f}"] for f in _MAP_KEYS},
-                              cfg.fractal.search_range,
-                              cfg.fractal.use_halfpel_refs,
-                              ref_bits=3 if pending["dual_ref"] else None)
-            FS.write_residual(w, h[f"{i}_zz"], ph // 4, pw // 4,
-                              int(cfg.entropy))
-        payload = w.to_bytes()
+        with trace.span("fractal.entropy", frame=frame):
+            w = BitWriter()
+            w.u({"i": 0, "p": 1, "c": 2}[kind], 8)
+            w.u(int(pending["qp"]), 8)
+            for i, (ph, pw) in enumerate(dims):
+                if kind == "i":
+                    FS.write_intra_modes(w, h[f"{i}_modes"])
+                elif kind == "c":
+                    if i == 0:
+                        w.se(h["mvx"].reshape(-1))
+                        w.se(h["mvy"].reshape(-1))
+                else:
+                    FS.write_tree(w, {f: h[f"{i}_{f}"] for f in _MAP_KEYS},
+                                  cfg.fractal.search_range,
+                                  cfg.fractal.use_halfpel_refs,
+                                  ref_bits=3 if pending["dual_ref"] else None)
+                FS.write_residual(w, h[f"{i}_zz"], ph // 4, pw // 4,
+                                  int(cfg.entropy))
+            payload = w.to_bytes()
 
         psnrs = []
         for i, (ph, pw) in enumerate(dims):
@@ -364,7 +379,9 @@ class FractalCodec:
         Software-pipelined: frame N's host entropy coding overlaps frame
         N+1's device work (the recon feedback stays on the device).  With
         rate control the loop is sequential (frame N's bits decide frame
-        N+1's QP); with ``num_regions == 2`` it is the region coder.
+        N+1's QP); with ``num_regions == 2`` it is the region coder.  Each
+        call is one ``trace`` sequence: a frame is taken when the iterator
+        yields it and done once its result and payload are on the host.
         Returns (results, bitstream bytes)."""
         if self.cfg.num_regions == 2:
             res, stream, _masks = self.encode_sequence_region(
@@ -372,12 +389,15 @@ class FractalCodec:
             return res, stream
         if self.cfg.rate_control and self.cfg.target_bitrate > 0:
             return self._encode_sequence_rc(frames, verbose)
+        seq = trace.sequence()
         results = []
         payloads = []
         pending = None
         ref = None
         for idx, yuv in enumerate(frames):
+            trace.frame_taken(seq, idx)
             disp = self.dispatch_frame(yuv, ref, idx)
+            disp["frame"] = (seq, idx)
             ref = disp["recs"]
             if pending is not None:
                 results.append(self._emit(pending, payloads, verbose))
@@ -395,13 +415,16 @@ class FractalCodec:
         2^24."""
         cfg = self.cfg
         rc = QuadraticRateControl(cfg.target_bitrate, cfg.frame_rate, cfg.qp)
+        seq = trace.sequence()
         results = []
         payloads = []
         ref = None
         for idx, yuv in enumerate(frames):
+            trace.frame_taken(seq, idx)
             intra = self.is_intra(idx) or ref is None
             qp = cfg.qp_i if intra else rc.frame_qp()
             res, payload = self.encode_frame(yuv, ref, idx, qp=qp)
+            trace.frame_done(seq, idx, res.frame_type)
             ref = res.recon_dev
             results.append(res)
             payloads.append(payload)
@@ -430,6 +453,7 @@ class FractalCodec:
 
     def _emit(self, pending, payloads, verbose):
         res, payload = self.finalize_frame(pending)
+        trace.frame_done(*pending["frame"], res.frame_type)
         payloads.append(payload)
         if verbose:
             idx = len(payloads) - 1
@@ -451,9 +475,11 @@ class FractalCodec:
             masks = [m.cpu().numpy() for m in SG.segment_sequence(
                 [f[0] for f in frames], self.device)]
         masks_dev = [_as_tensor(m, self.device) for m in masks]
+        seq = trace.sequence()
         results, payloads = [], []
         ref = None
         for idx, yuv in enumerate(frames):
+            trace.frame_taken(seq, idx)
             if self.is_intra(idx) or ref is None:
                 res, payload = self.encode_frame(yuv, None, 0)
             else:
@@ -462,36 +488,38 @@ class FractalCodec:
                 if verbose:
                     print(f"frame {idx:3d} R  PSNR Y {res.psnr_y:6.2f}  "
                           f"bits {res.bits}")
+            trace.frame_done(seq, idx, res.frame_type)
             results.append(res)
             payloads.append(payload)
             ref = res.recon_dev
         return results, self._assemble(payloads, len(frames)), masks
 
-    def encode_region_frame(self, yuv, ref, mask_cur, mask_ref, marks=None):
+    def encode_region_frame(self, yuv, ref, mask_cur, mask_ref):
         """One region-coded P frame (type 3) against the reference frame
-        ``ref`` and the alpha planes of this frame and the reference's.
-        ``marks`` (see :func:`_mark`) gets an event after the region search,
-        the region reconstruction, the luma residual coding and the chroma
-        planes' fractal path.  Returns (FrameResult, payload bytes)."""
+        ``ref`` and the alpha planes of this frame and the reference's, in
+        the spans ``fractal.region.search``, ``.recon``, ``.residual`` (luma)
+        and ``.chroma`` (the chroma planes' fractal path, with its own
+        stage spans inside).  Returns (FrameResult, payload bytes)."""
         fr = self.cfg.fractal
-        y, u, v = _as_planes(yuv, self.device)
-        ref = _as_planes(ref, self.device)
-        m_cur = _as_tensor(mask_cur, self.device)
-        m_ref = _as_tensor(mask_ref, self.device)
+        dev = self.device
+        y, u, v = _as_planes(yuv, dev)
+        ref = _as_planes(ref, dev)
+        m_cur = _as_tensor(mask_cur, dev)
+        m_ref = _as_tensor(mask_ref, dev)
         qp = self.cfg.qp
         cqp = T.chroma_qp(qp)
-        params = RG.region_search_plane(y, ref[0], m_cur, m_ref,
-                                        search_range=fr.search_range,
-                                        use_halfpel=fr.use_halfpel_refs)
-        _mark(marks, y.device)
-        frec = RG.region_reconstruct(params, ref[0], m_cur, m_ref,
-                                     use_halfpel=fr.use_halfpel_refs)
-        _mark(marks, y.device)
-        zz_y, rec_y = T.residual_code_plane(y, frec, qp, True)
-        _mark(marks, y.device)
-        chroma = [self._p_plane(org, rf, cqp, False)
-                  for org, rf in ((u, ref[1]), (v, ref[2]))]
-        _mark(marks, y.device)
+        with trace.span("fractal.region.search", dev):
+            params = RG.region_search_plane(y, ref[0], m_cur, m_ref,
+                                            search_range=fr.search_range,
+                                            use_halfpel=fr.use_halfpel_refs)
+        with trace.span("fractal.region.recon", dev):
+            frec = RG.region_reconstruct(params, ref[0], m_cur, m_ref,
+                                         use_halfpel=fr.use_halfpel_refs)
+        with trace.span("fractal.region.residual", dev):
+            zz_y, rec_y = T.residual_code_plane(y, frec, qp, True)
+        with trace.span("fractal.region.chroma", dev):
+            chroma = [self._p_plane(org, rf, cqp, False)
+                      for org, rf in ((u, ref[1]), (v, ref[2]))]
 
         w = BitWriter()
         w.u(3, 8)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import mark
+from .. import trace
 from ..ops import deblock as DB
 from ..ops import fractal as F
 from ..ops import transform as T
@@ -52,33 +52,36 @@ def _local_plane_step(org, ext, qp: int, *, tile: int, n_tiles: int,
                       search_range: int, tol16: float, tol8: float,
                       use_halfpel: bool, is_luma: bool, deblock: bool,
                       local_groups: int, search_mode: int = 0,
-                      chun_lo: float = 0.9, chun_hi: float = 1.0, bounds=None,
-                      marks=None):
+                      chun_lo: float = 0.9, chun_hi: float = 1.0, bounds=None):
     """Encode one plane tile: search, fractal reconstruction, residual coding
-    and the banded deblock of its ``local_groups`` bands.  ``ext`` is the
-    tile's reference with its halo rows (:func:`halo_exchange_rows`).
-    ``marks`` gets an event after each of the four stages."""
+    and the banded deblock of its ``local_groups`` bands, in the spans
+    ``fractal.tile.search``, ``.recon``, ``.residual`` and ``.deblock`` on
+    the tile's device.  ``ext`` is the tile's reference with its halo rows
+    (:func:`halo_exchange_rows`)."""
     sr = search_range
     halo = sr + 1
     hl, W = org.shape
+    dev = org.device
     y_lo = 0 if tile == 0 else -sr
     y_hi = hl if tile == n_tiles - 1 else hl + sr
-    tree = F.search_plane(org, ext, search_range=sr, tol16=tol16, tol8=tol8,
-                          use_halfpel=use_halfpel, search_mode=search_mode,
-                          chun_lo=chun_lo, chun_hi=chun_hi, bounds=bounds,
-                          halo=halo, y_lo=y_lo, y_hi=y_hi)
-    mark(marks, org.device)
-    maps = F.leaf_maps(tree, hl, W)
-    frec = F.reconstruct_from_maps(maps, ext, hl, W, use_halfpel, halo=halo)
-    mark(marks, org.device)
-    zz, rec = T.residual_code_plane(org, frec, qp, is_luma)
-    mark(marks, org.device)
+    with trace.span("fractal.tile.search", dev):
+        tree = F.search_plane(org, ext, search_range=sr, tol16=tol16,
+                              tol8=tol8, use_halfpel=use_halfpel,
+                              search_mode=search_mode, chun_lo=chun_lo,
+                              chun_hi=chun_hi, bounds=bounds, halo=halo,
+                              y_lo=y_lo, y_hi=y_hi)
+    with trace.span("fractal.tile.recon", dev):
+        maps = F.leaf_maps(tree, hl, W)
+        frec = F.reconstruct_from_maps(maps, ext, hl, W, use_halfpel,
+                                       halo=halo)
+    with trace.span("fractal.tile.residual", dev):
+        zz, rec = T.residual_code_plane(org, frec, qp, is_luma)
     if deblock:
-        nz = (zz != 0).any(dim=-1).reshape(hl // 4, W // 4)
-        bs_v, bs_h = DB.strengths_fractal(maps, nz)
-        rec = DB.deblock_plane_grouped(rec, bs_v, bs_h, qp, is_luma,
-                                       local_groups)
-    mark(marks, org.device)
+        with trace.span("fractal.tile.deblock", dev):
+            nz = (zz != 0).any(dim=-1).reshape(hl // 4, W // 4)
+            bs_v, bs_h = DB.strengths_fractal(maps, nz)
+            rec = DB.deblock_plane_grouped(rec, bs_v, bs_h, qp, is_luma,
+                                           local_groups)
     return maps, zz, rec
 
 
@@ -88,14 +91,13 @@ def tiled_p_step(mesh: Mesh, search_range: int, tol16: float, tol8: float,
                  chun_lo: float = 0.9, chun_hi: float = 1.0, bounds=None):
     """The sharded fractal P step over ``mesh`` with axes ("gop", "tile").
 
-    Returns ``step(y, u, v, ref_y, ref_u, ref_v, qp, marks=None)`` over
+    Returns ``step(y, u, v, ref_y, ref_u, ref_v, qp)`` over
     batched planes [B, H, W] / [B, H/2, W/2] (B a multiple of the gop
     axis; frame b goes to gop slot b // (B / gop)), with ``qp`` the luma QP.
     Tile heights (H and H/2 over the tile count) must be multiples of 16.
     It returns ((maps_y, maps_u, maps_v) dicts of [B, h/4, w/4] int32,
     (zz_y, zz_u, zz_v) [B, h/4 * w/4, 16], (rec_y, rec_u, rec_v) [B, h, w])
-    on the device of ``y``; ``marks`` (a list) gets each tile's stage
-    events on CUDA.  ``tile_rows`` (default: the tile count) is the
+    on the device of ``y``.  ``tile_rows`` (default: the tile count) is the
     config-fixed deblock band grid, a multiple of the tile count.
     """
     if set(mesh.axis_names) != {"gop", "tile"}:
@@ -114,7 +116,7 @@ def tiled_p_step(mesh: Mesh, search_range: int, tol16: float, tol8: float,
     def slot(g: int, t: int) -> torch.device:
         return mesh.devices[(g, t) if g_ax == 0 else (t, g)]
 
-    def plane(org_b, ref_b, qp: int, is_luma: bool, marks):
+    def plane(org_b, ref_b, qp: int, is_luma: bool):
         """One plane of every frame of the batch."""
         B, H, W = org_b.shape
         if B % n_gop:
@@ -134,7 +136,7 @@ def tiled_p_step(mesh: Mesh, search_range: int, tol16: float, tol8: float,
                                              devs)]
             exts = halo_exchange_rows(refs, search_range + 1)
             outs = [_local_plane_step(o, e, qp, tile=t, is_luma=is_luma,
-                                      marks=marks, **kw)
+                                      **kw)
                     for t, (o, e) in enumerate(zip(orgs, exts))]
             maps.append({k: gather([m[k] for m, _, _ in outs], home)
                          for k in _MAP_KEYS})
@@ -143,9 +145,9 @@ def tiled_p_step(mesh: Mesh, search_range: int, tol16: float, tol8: float,
         return ({k: torch.stack([m[k] for m in maps]) for k in _MAP_KEYS},
                 torch.stack(zzs), torch.stack(recs))
 
-    def step(y, u, v, ref_y, ref_u, ref_v, qp: int, marks=None):
+    def step(y, u, v, ref_y, ref_u, ref_v, qp: int):
         cqp = T.chroma_qp(qp)
-        outs = [plane(o, r, q, luma, marks)
+        outs = [plane(o, r, q, luma)
                 for o, r, q, luma in ((y, ref_y, qp, True),
                                       (u, ref_u, cqp, False),
                                       (v, ref_v, cqp, False))]

@@ -484,3 +484,44 @@ def test_cfg_file_entry_path_card_stream_equals_cpu_stream(tmp_path):
     _, cpu = FractalCodec(cfg, device="cpu").encode_sequence(frames)
     assert card == cpu
     assert [r.qp for r in res] == [24, 26, 26, 26]
+
+
+@pytest.mark.gpu
+def test_trace_device_spans_resolve_and_name_profile_gaps():
+    """With the tracer on, a fractal QCIF 1 I + 2 P encode on the card
+    gives every device span a positive device time, the spans' host
+    intervals fall inside a ``Profile`` window around the encode, and the
+    profile names idle gaps by them."""
+    _need_card()
+    from h264tpu_torch import trace
+    from benchmark.harness.profile import Profile
+    cfg = CodecConfig(width=176, height=144, qp=24, intra_period=0,
+                      deblock=True, fractal=FractalConfig(search_range=7))
+    codec = FractalCodec(cfg, device="cuda")
+    frames = _blocky_frames(3, 144, 176)
+    codec.encode_sequence(frames)                       # warm
+    prof = Profile()
+    trace.reset()
+    trace.enable()
+    try:
+        prof.start()
+        codec.encode_sequence(frames)
+        prof.stop()
+    finally:
+        trace.disable()
+    recs = trace.records()
+    spans = [r for r in recs if r["kind"] == "span"]
+    device = [r for r in spans if r["device_ms"] is not None]
+    assert {r["name"] for r in device} >= {
+        "fractal.frame", "fractal.intra", "fractal.search", "fractal.recon",
+        "fractal.residual", "fractal.deblock", "fractal.upload"}
+    assert all(r["device_ms"] > 0 for r in device)
+    assert len([r for r in recs if r["kind"] == "frame"]) == 3
+    t0, t1 = prof.window_ns
+    intervals = trace.intervals()
+    assert intervals and all(t0 <= s <= e <= t1 for _, s, e in intervals)
+    summary = prof.summary(2, intervals)
+    names = {n for n, _, _ in intervals}
+    assert any(label.split(" / ")[0] in names
+               for label, _ in summary["idle_gaps"])
+    trace.reset()

@@ -18,10 +18,14 @@ Phases, in order; any failure exits non-zero before the result line:
    of the search's other options (search modes 1-3, SR 16, one reference
    plane, ragged tiles); each case reports the kernel's device
    time per launch (torch.profiler kernel events) and, apart from it, the
-   wrapper's call time (CUDA events around back-to-back calls);
+   wrapper's call time (CUDA events around back-to-back calls); then the
+   loop filter's kernel pair (``csrc/deblock.cu``) against its plain version
+   at CIF luma and chroma, with the device time of a call's two launches,
+   the call's time and the plain version's;
 3. the fractal main path at full size: ``FractalCodec.encode_sequence`` of
    1 I + 7 P CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC)
-   with the kernel launch counters reset just before and read just after,
+   with the kernel launch counters reset just before and read just after
+   (two deblock launches per plane),
    then ``FractalDecoder.decode`` of the stream, which must reproduce the
    encoder's reconstruction exactly; per-frame PSNR and bits, steady-state
    P-frame fps, per-stage times of one P frame, and one I + one P frame at
@@ -254,13 +258,15 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
 PROFILER_WINDOWS = 3
 
 
-def kernel_device_ms(fn, reps: int, name: str = "cross_cells_kernel") -> float:
-    """Mean device time in ms of one launch of the kernel whose name holds
-    ``name``, from the kernel events torch.profiler records over ``reps``
-    calls of ``fn`` (after one warm-up call).  A window in which the
-    profiler records fewer kernel events than calls is traced again, up to
-    PROFILER_WINDOWS windows; fails unless one window saw every call launch
-    the kernel exactly once."""
+def kernel_device_ms(fn, reps: int, name: str = "cross_cells_kernel",
+                     per_call: int = 1) -> float:
+    """Mean device time in ms of one call of ``fn``, summed over the
+    ``per_call`` launches of kernels whose names hold ``name`` that the call
+    makes, from the kernel events torch.profiler records over ``reps``
+    calls (after one warm-up call).  A window in which the profiler records
+    fewer kernel events than that is traced again, up to PROFILER_WINDOWS
+    windows; fails unless one window saw every call launch exactly
+    ``per_call`` such kernels."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     fn()
@@ -274,13 +280,13 @@ def kernel_device_ms(fn, reps: int, name: str = "cross_cells_kernel") -> float:
         us = [e.device_time_total for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and name in e.name]
-        if len(us) == reps and all(u > 0 for u in us):
-            return sum(us) / len(us) / 1e3
+        if len(us) == reps * per_call and all(u > 0 for u in us):
+            return sum(us) / reps / 1e3
         print(f"[profiler] window {attempt} of {PROFILER_WINDOWS} saw "
               f"{len(us)} {name} "
-              f"launches with device time, not {reps}", flush=True)
-    fail(f"the profiler saw no complete window of {reps} {name} launches "
-         f"in {PROFILER_WINDOWS} tries")
+              f"launches with device time, not {reps * per_call}", flush=True)
+    fail(f"the profiler saw no complete window of {reps * per_call} {name} "
+         f"launches in {PROFILER_WINDOWS} tries")
 
 
 def phase_device_and_build():
@@ -372,10 +378,74 @@ def cross_cells_bound_ms(H: int, W: int, R: int, sr: int, n_off: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# name, H, W, luma: the fractal main path's loop filter calls (one a plane)
+DEBLOCK_CASES = (("cif_luma", 288, 352, True), ("cif_chroma", 144, 176, False))
+DEBLOCK_QP = 24
+
+
+def deblock_bound_ms(H: int, W: int):
+    """(bound ms, "bytes"): the plane and both strength maps read once and
+    the plane written once, int32, at the HBM rate."""
+    nbytes = 4 * (2 * H * W + 2 * (H // 4) * (W // 4))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def deblock_inputs(rng, H: int, W: int):
+    """(plane, bs_v, bs_h) int32 on the card: 4x4 cells of one level with a
+    little noise, random strengths 0..4 (normal and strong filters fire)."""
+    import torch
+    tex = np.kron(rng.integers(40, 220, (H // 4, W // 4)), np.ones((4, 4)))
+    plane = np.clip(tex + rng.integers(-3, 4, (H, W)), 0, 255)
+    return [torch.as_tensor(a, dtype=torch.int32).cuda() for a in (
+        plane, rng.integers(0, 5, (H // 4, W // 4)),
+        rng.integers(0, 5, (H // 4, W // 4)))]
+
+
+def phase_deblock_kernel(seed: int):
+    """The deblock kernel pair against its plain version (exact int32
+    equality) at the main path's CIF luma and chroma planes; device time of
+    one call's two launches (torch.profiler), the call's time by CUDA events
+    over back-to-back calls, the plain version's."""
+    import torch
+    from h264tpu_torch.ops import deblock as DB
+    rng = np.random.default_rng(seed + 2)
+    rows = {}
+    for name, H, W, luma in DEBLOCK_CASES:
+        plane, bs_v, bs_h = deblock_inputs(rng, H, W)
+
+        def call():
+            return DB.deblock_plane(plane, bs_v, bs_h, DEBLOCK_QP, luma)
+
+        def plain():
+            return DB.deblock_plane_reference(plane, bs_v, bs_h, DEBLOCK_QP,
+                                              luma)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(err == 0, f"deblock != plain version at {name}: max abs err "
+              f"{err}")
+        check(not torch.equal(want, plane), f"deblock filtered nothing at "
+              f"{name}")
+        ms = kernel_device_ms(call, 20, "deblock_", per_call=2)
+        call_ms = cuda_ms(call, 200)
+        plain_ms = cuda_ms(plain, 3, 1)
+        bound_ms, bound_by = deblock_bound_ms(H, W)
+        rows[name] = dict(ms=ms, wrapper_call_ms=call_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=err)
+        print(f"[kernel deblock {name}] H={H} W={W} qp={DEBLOCK_QP} "
+              f"luma={luma}: exact; device {ms:.4f} ms (bound {bound_ms:.4f} "
+              f"ms by {bound_by}, share {bound_ms / ms:.4f}); call "
+              f"{call_ms:.4f} ms (CUDA events over 200 calls); plain "
+              f"{plain_ms:.3f} ms", flush=True)
+    return rows
+
+
 def phase_kernels(seed: int):
     """cross_cells against its plain version (exact int32 equality) at the
     main path's shapes and the search's other options; device time of one
-    launch (torch.profiler), the wrapper's call time, the plain version's."""
+    launch (torch.profiler), the wrapper's call time, the plain version's.
+    Then the deblock kernel pair (:func:`phase_deblock_kernel`)."""
     import torch
     from h264tpu_torch.ops import fractal as F
     rng = np.random.default_rng(seed + 1)
@@ -412,7 +482,7 @@ def phase_kernels(seed: int):
               f"{bound_ms / ms:.3f}); wrapper call {call_ms:.4f} ms; "
               f"plain {plain_ms:.3f} ms", flush=True)
         del got
-    return rows
+    return rows, phase_deblock_kernel(seed)
 
 
 def cif_config(H: int, W: int):
@@ -553,6 +623,7 @@ def steady_p_marks(codec, frames, ref):
 def phase_main_path(seed: int, profile_dir=None):
     import torch
     from h264tpu_torch.models.fractal_codec import FractalCodec
+    from h264tpu_torch.ops import deblock as DB
     from h264tpu_torch.ops import fractal as F
 
     H, W = 288, 352
@@ -562,13 +633,18 @@ def phase_main_path(seed: int, profile_dir=None):
     torch.cuda.synchronize()
 
     F.cross_cell_sums.launches = 0
+    DB.deblock_plane.launches = 0
     t0 = time.perf_counter()
     results, stream = codec.encode_sequence(frames)
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
-    launches = {"cross_cells": F.cross_cell_sums.launches}
+    launches = {"cross_cells": F.cross_cell_sums.launches,
+                "deblock": DB.deblock_plane.launches}
     check(launches["cross_cells"] > 0,
           "the main path launched cross_cells no time")
+    check(launches["deblock"] == 2 * 3 * len(frames),
+          f"the main path launched the deblock kernels {launches['deblock']} "
+          f"times, not two per plane")
     for i, r in enumerate(results):
         print(f"[cif] frame {i} {r.frame_type} PSNR Y {r.psnr_y:.3f} "
               f"U {r.psnr_u:.3f} V {r.psnr_v:.3f} bits {r.bits}", flush=True)
@@ -577,8 +653,8 @@ def phase_main_path(seed: int, profile_dir=None):
     check([r.frame_type for r in results] == ["I"] + ["P"] * 7,
           "unexpected frame types")
     print(f"[cif] encode_sequence 1I+7P: {seq_s:.3f} s, stream "
-          f"{len(stream)} bytes, cross_cells launches {launches['cross_cells']}",
-          flush=True)
+          f"{len(stream)} bytes, cross_cells launches {launches['cross_cells']}"
+          f", deblock launches {launches['deblock']}", flush=True)
 
     dec_s = fractal_decode_check("cif", stream, results)
     print(f"[cif] decode: bit-exact with the encoder recon, {dec_s:.3f} s",
@@ -2607,7 +2683,7 @@ def main(argv=None) -> int:
         return out
 
     timed("device and build", phase_device_and_build)
-    krows = timed("kernels", phase_kernels, args.seed)
+    krows, drows = timed("kernels", phase_kernels, args.seed)
     launches, cif_stream, cif_p_ms = timed("fractal cif", phase_main_path,
                                            args.seed, args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
@@ -2683,7 +2759,14 @@ def main(argv=None) -> int:
         "bound_ms": krows[kcase]["bound_ms"],
         "bound_by": krows[kcase]["bound_by"], "library_ms": None,
         "wrapper_call_ms": krows[kcase]["wrapper_call_ms"]}
-        for case, kcase, n_launch in paths]}
+        for case, kcase, n_launch in paths] + [{
+            "name": "deblock", "case": case, "route": "cuda",
+            "source": "h264tpu_torch/csrc/deblock.cu", "replaces": None,
+            "launches": launches["deblock"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "wrapper_call_ms": row["wrapper_call_ms"]}
+            for case, row in drows.items()]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("cross_cells",)
+SOURCES = ("cross_cells", "deblock")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "cross_cells": ("cross_cells_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                            _I, _P]),
+    "deblock": ("deblock_launch", [_P, _P, _P, _P, *[_I] * 12, _P]),
 }
 _LIBS: dict = {}
 _BUILD_LOCK = threading.Lock()
@@ -115,10 +116,11 @@ def build_all(names=SOURCES) -> dict:
 
 
 def load(name: str):
-    """The bound launch function of ``csrc/<name>.cu``, built on first use."""
+    """The bound launch function of ``csrc/<name>.cu``, built on first use
+    (with every other missing library of ``SOURCES``, in one round)."""
     fn = _LIBS.get(name)
     if fn is None:
-        build_all((name,))
+        build_all()
         lib = ctypes.CDLL(str(library_path(name)))
         sym, argtypes = _SIGNATURES[name]
         fn = getattr(lib, sym)
@@ -143,3 +145,20 @@ def launch_cross_cells(org: torch.Tensor, refs_pad: torch.Tensor,
         torch.cuda.current_stream(org.device).cuda_stream)
     if err:
         raise RuntimeError(f"cross_cells launch failed with cudaError {err}")
+
+
+def launch_deblock(plane: torch.Tensor, bs_v: torch.Tensor,
+                   bs_h: torch.Tensor, out: torch.Tensor, alpha: int,
+                   beta: int, tc0, luma: bool):
+    """Launch the ``deblock`` kernel pair on the current stream: ``out`` [B,
+    H, W] = ``plane`` deblocked (arguments checked by the caller,
+    ``ops.deblock.deblock_plane``); raises on a launch error."""
+    B, H, W = plane.shape
+    err = load("deblock")(
+        plane.data_ptr(), bs_v.data_ptr(), bs_h.data_ptr(), out.data_ptr(),
+        B, H, W, alpha, beta, *tc0, int(luma),
+        plane.device.index if plane.device.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(plane.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"deblock launch failed with cudaError {err}")

@@ -5,15 +5,19 @@ bS<4 + strong bS=4) with the spec's ALPHA/BETA/CLIP tables
 (``FR/src/loopFilter.c:329`` EdgeLoop), in the FVC edge order — all vertical
 edges left to right, each across every row at once, then all horizontal edges
 top to bottom on the transposed plane.  The JAX ``lax.scan`` over edges is a
-Python loop that updates the plane in place.
+Python loop that updates the plane in place (:func:`deblock_plane_reference`,
+the path of CPU tensors); on a CUDA tensor :func:`deblock_plane` launches the
+hand-written kernel pair ``csrc/deblock.cu`` instead.
 """
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
-from .. import device_const
+from .. import device_const, kernels
 
 ALPHA_TABLE = np.array(
     [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 4, 5, 6,
@@ -121,14 +125,83 @@ def _vertical_pass(plane: torch.Tensor, bs_v: torch.Tensor, qp: int,
     return buf
 
 
-def deblock_plane(plane: torch.Tensor, bs_v: torch.Tensor, bs_h: torch.Tensor,
-                  qp: int, luma: bool = True) -> torch.Tensor:
-    """Deblock one plane (or a batch of planes): all vertical edges, then all
-    horizontal edges."""
+def deblock_plane_reference(plane: torch.Tensor, bs_v: torch.Tensor,
+                            bs_h: torch.Tensor, qp: int,
+                            luma: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`deblock_plane`: the loop over edges."""
     out = _vertical_pass(plane, bs_v, qp, luma)
     out = _vertical_pass(out.transpose(-1, -2).contiguous(),
                          bs_h.transpose(-1, -2), qp, luma)
     return out.transpose(-1, -2).contiguous()
+
+
+def filter_args(qp: int):
+    """The kernel's filter arguments at ``qp``: (α, β, the CLIP_TAB row),
+    read from the tables as :func:`_filter_edge_lines` reads them."""
+    return (int(ALPHA_TABLE[qp]), int(BETA_TABLE[qp]),
+            tuple(int(c) for c in CLIP_TAB[qp]))
+
+
+def kernel_operands(plane: torch.Tensor, bs_v: torch.Tensor,
+                    bs_h: torch.Tensor):
+    """(plane, bs_v, bs_h) as the kernel takes them: int32, contiguous, the
+    plane [B, H, W] and 16-byte aligned, the strengths [B, H/4, W/4].  The
+    plane may have any integer type and leading dimensions; the strengths
+    must be int32 of the plane's shape in cells.  Raises ValueError on what
+    the kernel does not take."""
+    if plane.dtype.is_floating_point or plane.dtype.is_complex \
+            or plane.dtype == torch.bool:
+        raise ValueError(f"deblock_plane: plane must hold integers, not "
+                         f"{plane.dtype}")
+    for name, t in (("bs_v", bs_v), ("bs_h", bs_h)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"deblock_plane: {name} must be int32, not "
+                             f"{t.dtype}")
+        if t.device != plane.device:
+            raise ValueError(f"deblock_plane: {name} is on {t.device}, the "
+                             f"plane on {plane.device}")
+    if plane.dim() < 2:
+        raise ValueError("deblock_plane: plane must be [..., H, W]")
+    *lead, H, W = plane.shape
+    cells = (*lead, H // 4, W // 4)
+    if H % 4 or W % 4 or H < 4 or W < 4 \
+            or tuple(bs_v.shape) != cells or tuple(bs_h.shape) != cells:
+        raise ValueError("deblock_plane: shape mismatch: plane "
+                         f"{tuple(plane.shape)} (H and W multiples of 4) "
+                         f"bs_v {tuple(bs_v.shape)} bs_h "
+                         f"{tuple(bs_h.shape)}, both must be {cells}")
+    plane = plane.to(torch.int32).contiguous().reshape(-1, H, W)
+    if plane.data_ptr() % 16:
+        plane = plane.clone()
+    return (plane, bs_v.contiguous().reshape(-1, H // 4, W // 4),
+            bs_h.contiguous().reshape(-1, H // 4, W // 4))
+
+
+def deblock_plane(plane: torch.Tensor, bs_v: torch.Tensor, bs_h: torch.Tensor,
+                  qp: int, luma: bool = True) -> torch.Tensor:
+    """Deblock one plane (or a batch of planes): all vertical edges, then all
+    horizontal edges.  Returns int32 of the plane's shape.
+
+    On a CUDA tensor this launches the hand-written kernel pair
+    (``csrc/deblock.cu``, :func:`kernel_operands` says what it takes) or
+    raises; on a CPU tensor it runs :func:`deblock_plane_reference`.
+    ``deblock_plane.launches`` counts kernel launches (two a call).
+    """
+    if plane.device.type == "cpu":
+        return deblock_plane_reference(plane, bs_v, bs_h, qp, luma)
+    if plane.device.type != "cuda":
+        raise ValueError(f"deblock_plane: unsupported device {plane.device}")
+    x, v, h = kernel_operands(plane, bs_v, bs_h)
+    out = torch.empty_like(x)
+    alpha, beta, tc0 = filter_args(qp)
+    kernels.launch_deblock(x, v, h, out, alpha, beta, tc0, luma)
+    with _LAUNCH_LOCK:                 # GOP worker threads launch too
+        deblock_plane.launches += 2
+    return out.reshape(plane.shape)
+
+
+deblock_plane.launches = 0
+_LAUNCH_LOCK = threading.Lock()
 
 
 def deblock_plane_grouped(plane: torch.Tensor, bs_v: torch.Tensor,

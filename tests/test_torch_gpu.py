@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from h264tpu_torch.ops import deblock as DB
 from h264tpu_torch.ops import fractal as F
 from h264tpu_torch.utils.config import CodecConfig, FractalConfig
 from h264tpu_torch.models.fractal_codec import FractalCodec, FractalDecoder
@@ -76,6 +77,79 @@ def test_cross_cells_rejects_bad_inputs():
         F.cross_cell_sums(org, refs_pad, offs, 2)          # no slot table
     with pytest.raises(ValueError):
         F.cross_cell_sums(org, refs_pad, offs, 2, slots[1:].contiguous())
+
+
+def _deblock_inputs(H, W, layout, bs_kind, seed):
+    """A blocky plane (4x4 cells of one level, a little noise, so that both
+    the normal and the strong filter fire) and its strengths, shaped for
+    ``layout``: ("grouped", groups) or ("batch", B) planes of [B, H, W]."""
+    rng = np.random.default_rng(seed)
+    kind, n = layout
+    lead = (n,) if kind == "batch" else ()
+    tex = np.kron(rng.integers(40, 220, (*lead, H // 4, W // 4)),
+                  np.ones((4, 4), np.int64))
+    plane = np.clip(tex + rng.integers(-3, 4, tex.shape), 0, 255)
+    cells = (*lead, H // 4, W // 4)
+    bs = [{"random": rng.integers(0, 5, cells),
+           "all4": np.full(cells, 4), "all0": np.zeros(cells, np.int64)}[
+        bs_kind] for _ in range(2)]
+    return [torch.as_tensor(a, dtype=torch.int32) for a in (plane, *bs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs_kind", ["random", "all4", "all0"])
+@pytest.mark.parametrize("qp", [0, 15, 16, 24, 36, 51])
+@pytest.mark.parametrize("H,W,layout", [
+    (288, 352, ("grouped", 1)),   # CIF luma
+    (288, 352, ("grouped", 2)),
+    (288, 352, ("grouped", 9)),
+    (288, 352, ("batch", 3)),     # a batch of planes in one deblock_plane
+    (144, 176, ("grouped", 1)),   # CIF chroma
+    (144, 176, ("grouped", 2)),
+    (144, 176, ("grouped", 9)),
+    (144, 176, ("batch", 3))])
+def test_deblock_kernel_matches_plain_version(H, W, layout, qp, bs_kind):
+    """The CUDA kernel pair equals the plain loop (on the CPU) exactly, for
+    luma and chroma, row bands and batches, every kind of strength."""
+    _need_card()
+    plane, bs_v, bs_h = _deblock_inputs(H, W, layout, bs_kind, H + qp)
+    for luma in (True, False):
+        if layout[0] == "batch":
+            want = DB.deblock_plane(plane, bs_v, bs_h, qp, luma)
+            got = DB.deblock_plane(plane.cuda(), bs_v.cuda(), bs_h.cuda(), qp,
+                                   luma)
+        else:
+            want = DB.deblock_plane_grouped(plane, bs_v, bs_h, qp, luma,
+                                            layout[1])
+            got = DB.deblock_plane_grouped(plane.cuda(), bs_v.cuda(),
+                                           bs_h.cuda(), qp, luma, layout[1])
+        assert got.dtype == torch.int32 and got.shape == plane.shape
+        assert torch.equal(got.cpu(), want), (luma, int((got.cpu() != want)
+                                                        .sum()))
+        if qp >= 16 and bs_kind != "all0":
+            assert not torch.equal(want, plane)
+
+
+@pytest.mark.gpu
+def test_deblock_rejects_bad_inputs_and_counts_launches():
+    _need_card()
+    plane = torch.zeros((16, 16), dtype=torch.int32, device="cuda")
+    bs = torch.zeros((4, 4), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        DB.deblock_plane(plane.float(), bs, bs, 30)
+    with pytest.raises(ValueError):
+        DB.deblock_plane(plane, bs.long(), bs, 30)
+    with pytest.raises(ValueError):
+        DB.deblock_plane(plane, bs, bs[:3].contiguous(), 30)
+    with pytest.raises(ValueError):
+        DB.deblock_plane(torch.zeros((16, 18), dtype=torch.int32,
+                                     device="cuda"), bs, bs, 30)
+    with pytest.raises(ValueError):
+        DB.deblock_plane(plane, bs.cpu(), bs, 30)
+    before = DB.deblock_plane.launches
+    DB.deblock_plane_grouped(plane, bs, bs, 30, True, 2)
+    torch.cuda.synchronize()
+    assert DB.deblock_plane.launches == before + 2
 
 
 @pytest.mark.gpu

@@ -77,10 +77,57 @@ def test_deblock_plane_grouped(luma, groups, qp):
     bs_h = rng.integers(0, 5, (H // 4, W // 4)).astype(np.int32)
     want = JD.deblock_plane_grouped(jnp.asarray(plane), jnp.asarray(bs_v),
                                     jnp.asarray(bs_h), qp, luma, groups)
+    before = TD.deblock_plane.launches
     got = TD.deblock_plane_grouped(_t(plane), _t(bs_v), _t(bs_h), qp, luma,
                                    groups)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not np.array_equal(got.numpy(), plane)
+    assert TD.deblock_plane.launches == before   # CPU: the plain loop
+
+
+@pytest.mark.parametrize("qp", range(52))
+def test_deblock_filter_args_equal_tables(qp):
+    """The kernel's per-call arguments are the tables' entries at qp."""
+    alpha, beta, tc0 = TD.filter_args(qp)
+    assert alpha == JD.ALPHA_TABLE[qp] and beta == JD.BETA_TABLE[qp]
+    assert tc0 == tuple(int(c) for c in JD.CLIP_TAB[qp]) and len(tc0) == 5
+    assert (alpha == 0) == (qp < 16)
+
+
+@pytest.mark.parametrize("lead", [(), (2,), (3,)])
+def test_deblock_kernel_operands_batch(lead):
+    """The kernel's operands: the plane as int32 [B, H, W], the strengths
+    [B, H/4, W/4], whatever the leading dimensions and the plane's type."""
+    plane = torch.arange(np.prod(lead, dtype=int) * 8 * 12,
+                         dtype=torch.int64).reshape(*lead, 8, 12) % 256
+    bs = torch.ones((*lead, 2, 3), dtype=torch.int32)
+    x, v, h = TD.kernel_operands(plane.to(torch.uint8), bs, bs)
+    b = int(np.prod(lead, dtype=int))
+    assert x.dtype == torch.int32 and x.is_contiguous()
+    assert tuple(x.shape) == (b, 8, 12) and x.data_ptr() % 16 == 0
+    assert tuple(v.shape) == tuple(h.shape) == (b, 2, 3)
+    assert torch.equal(x.reshape(plane.shape), plane.to(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["float_plane", "int64_strengths",
+                                  "strength_shape", "w_not_multiple_of_4",
+                                  "two_devices"])
+def test_deblock_kernel_operands_reject(case):
+    plane = torch.zeros((8, 12), dtype=torch.int32)
+    bs_v = torch.zeros((2, 3), dtype=torch.int32)
+    bs_h = bs_v
+    if case == "float_plane":
+        plane = plane.float()
+    elif case == "int64_strengths":
+        bs_h = bs_h.long()
+    elif case == "strength_shape":
+        bs_h = torch.zeros((3, 2), dtype=torch.int32)
+    elif case == "w_not_multiple_of_4":
+        plane = torch.zeros((8, 14), dtype=torch.int32)
+    else:
+        bs_v = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        TD.kernel_operands(plane, bs_v, bs_h)
 
 
 def test_strengths_match():

@@ -490,28 +490,48 @@ class DeviceAVCCodec:
         previous anchor alone.  The stream is in decode order, the results
         in display order.  Like ``TPUAVCCodec``'s B sequences it takes no
         rate control: ``encode_sequence`` hands the call here before it
-        reads ``rate_control``, so a controller is never consulted.  One
-        ``trace`` sequence: a frame is taken when its encode starts (the
-        frames are read in whole first) and done once packed."""
+        reads ``rate_control``, so a controller is never consulted.
+
+        The source is read one GOP ahead, as a live encoder buffers it: the
+        IDR is taken and coded, then up to ``bframes + 1`` frames are taken
+        and coded as one GOP whose anchor is the last of them, and so on;
+        a source that ends inside a GOP makes its last frame the anchor
+        (the anchors of ``TPUAVCCodec``: every ``bframes + 1``-th frame and
+        the last).  One ``trace`` sequence: a frame is taken when it is
+        read from the source and done once packed; the spans are
+        ``avc.b.frame`` (a B picture's device encode), ``avc.b.wait`` and
+        ``avc.wait`` (a B picture's and an anchor's downloads),
+        ``avc.pack`` and ``avc.host_deblock``."""
         p = self.p
-        frames = list(frames)
-        n = len(frames)
         G = self.bframes + 1
-        anchors = sorted(set(list(range(0, n, G)) + [n - 1]))
         mb_h, mb_w = p.mb_h, p.mb_w
         rows = mb_h // self.n_slices
         max_fn = 1 << p.log2_max_frame_num
         max_poc = 1 << p.log2_max_poc_lsb
-        slices, results = [], [None] * n
+        slices, results = [], []
         fn_state = dict(frame_num=0)
         packi = PKC.pack_i_slice_cabac if p.cabac else PK.pack_i_slice
         packp = PKC.pack_p_slice_cabac if p.cabac else PK.pack_p_slice
         packb = PKC.pack_b_slice_cabac if p.cabac else PK.pack_b_slice
         seq = trace.sequence()
         spans = dict(pack="avc.pack", deblock="avc.host_deblock")
+        source = iter(frames)
+        held = {}                       # display index -> frame not yet coded
 
-        def timed(key, fn, *a, **kw):
-            with trace.span(spans[key]):
+        def take() -> bool:
+            """Read the source's next frame into ``held``; False at its
+            end."""
+            yuv = next(source, held)
+            if yuv is held:
+                return False
+            idx = len(results)
+            trace.frame_taken(seq, idx)
+            held[idx] = yuv
+            results.append(None)
+            return True
+
+        def timed(key, disp, fn, *a, **kw):
+            with trace.span(spans[key], frame=(seq, disp)):
                 t0 = time.perf_counter()
                 out = fn(*a, **kw)
                 self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
@@ -524,7 +544,7 @@ class DeviceAVCCodec:
         def finish(rec_np, disp, ftype, rbsps, ref_idc, idr=False):
             slices.extend((idr, rb, ref_idc) for rb in rbsps)
             rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
-            mse = ((np.asarray(frames[disp][0], np.float64) - rec8[0])
+            mse = ((np.asarray(held.pop(disp)[0], np.float64) - rec8[0])
                    ** 2).mean()
             results[disp] = AVCFrameResult(
                 frame_type=ftype, bits=sum(len(rb) for rb in rbsps) * 8,
@@ -539,18 +559,20 @@ class DeviceAVCCodec:
 
         def encode_b(disp, prep0, poc0, prep1, poc1, col_motion, fqp,
                      ref_pic=False):
-            trace.frame_taken(seq, disp)
-            y, u, v = self.planes(frames[disp])
-            col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32)).to(
-                self.device) for a in col_motion)
-            sym, rec, tctx = self._encode_fn_b()(
-                y, u, v, *(x[None] for x in prep0), *(x[None] for x in prep1),
-                col_mv, col_ref, fqp, 1, 1)
-            sym_np = host_symbols(sym, torch.int32)
-            ctx_np = {k: v.cpu().numpy().astype(np.int64)
-                      for k, v in tctx.items()}
-            rec_np = tuple(pl.cpu().numpy().astype(np.int64) for pl in rec)
-            rbsps = timed("pack", pack_slices, packb, sym_np, p, fqp,
+            with trace.span("avc.b.frame", self.device, frame=(seq, disp)):
+                y, u, v = self.planes(held[disp])
+                col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32))
+                                   .to(self.device) for a in col_motion)
+                sym, rec, tctx = self._encode_fn_b()(
+                    y, u, v, *(x[None] for x in prep0),
+                    *(x[None] for x in prep1), col_mv, col_ref, fqp, 1, 1)
+            with trace.span("avc.b.wait", frame=(seq, disp)):
+                sym_np = host_symbols(sym, torch.int32)
+                ctx_np = {k: v.cpu().numpy().astype(np.int64)
+                          for k, v in tctx.items()}
+                rec_np = tuple(pl.cpu().numpy().astype(np.int64)
+                               for pl in rec)
+            rbsps = timed("pack", disp, pack_slices, packb, sym_np, p, fqp,
                           frame_num=fn_state["frame_num"] % max_fn,
                           num_ref0=1, num_ref1=1,
                           poc_lsb=(2 * disp) % max_poc, ref_pic=ref_pic)
@@ -562,7 +584,8 @@ class DeviceAVCCodec:
                 ctx.ref = np.where(ctx_np["ref0"] == 0, poc0, -1)
                 ctx.mv1 = ctx_np["mv1"]
                 ctx.ref1 = np.where(ctx_np["ref1"] == 0, poc1, -1)
-                rec_np = timed("deblock", AN.deblock_frame, *rec_np, ctx)
+                rec_np = timed("deblock", disp, AN.deblock_frame, *rec_np,
+                               ctx)
             rec8 = finish(rec_np, disp, "B", rbsps, 2 if ref_pic else 0)
             if ref_pic:
                 fn_state["frame_num"] += 1
@@ -570,22 +593,25 @@ class DeviceAVCCodec:
 
         prev = None
         pending_bref_fn = None
-        for a in anchors:
-            trace.frame_taken(seq, a)
-            fqp = qp
-            if a == 0:
-                sym, rec, tctx = self.encode_frame(frames[a], [], fqp)
-                rbsps = timed("pack", pack_slices, packi, host_symbols(sym),
-                              p, fqp, frame_num=0, idr=True)
+        while take():
+            # the IDR alone, then up to G frames: a GOP, the last its anchor
+            while prev is not None and len(held) < G and take():
+                pass
+            a = len(results) - 1
+            idr = prev is None
+            sym, rec, tctx = self.encode_frame(
+                held[a], [] if idr else [prev["prep"]], qp, n_refs=1)
+            with trace.span("avc.wait", frame=(seq, a)):
+                sym_np = host_symbols(sym)
                 ctx_np, rec_np = host_context(tctx, rec)
-                idr = True
+            if idr:
+                rbsps = timed("pack", a, pack_slices, packi, sym_np, p, qp,
+                              frame_num=0, idr=True)
                 fn_state["frame_num"] = 1
                 motion = (np.zeros((mb_h * 4, mb_w * 4, 2), np.int64),
                           np.full((mb_h * 4, mb_w * 4), -1, np.int64))
                 anchor_fn = 0
             else:
-                sym, rec, tctx = self.encode_frame(frames[a], [prev["prep"]],
-                                                   fqp, n_refs=1)
                 frame_num = fn_state["frame_num"]
                 mmco = reorder = None
                 if pending_bref_fn is not None:
@@ -597,21 +623,19 @@ class DeviceAVCCodec:
                     adiff = (frame_num - prev["fn"] - 1) % max_fn
                     if adiff:
                         reorder = [(0, adiff)]
-                rbsps = timed("pack", pack_slices, packp, host_symbols(sym),
-                              p, fqp, frame_num=frame_num % max_fn,
-                              num_ref=1, poc_lsb=(2 * a) % max_poc,
-                              mmco=mmco, reorder_l0=reorder)
+                rbsps = timed("pack", a, pack_slices, packp, sym_np, p, qp,
+                              frame_num=frame_num % max_fn, num_ref=1,
+                              poc_lsb=(2 * a) % max_poc, mmco=mmco,
+                              reorder_l0=reorder)
                 pending_bref_fn = None
-                ctx_np, rec_np = host_context(tctx, rec)
-                idr = False
                 anchor_fn = frame_num
                 fn_state["frame_num"] += 1
                 motion = (ctx_np["mv"].astype(np.int64),
                           ctx_np["ref"].astype(np.int64))
             if p.deblock:
-                ctx = deblock_context(ctx_np, mb_h, mb_w, fqp,
+                ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
                                       p.chroma_qp_offset, idr)
-                rec_np = timed("deblock", AN.deblock_frame, *rec_np, ctx)
+                rec_np = timed("deblock", a, AN.deblock_frame, *rec_np, ctx)
             rec8 = finish(rec_np, a, "IDR" if idr else "P", rbsps,
                           3 if idr else 2, idr)
             cur = dict(prep=self.prep(rec8), motion=motion, poc=2 * a,

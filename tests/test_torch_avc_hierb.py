@@ -2,7 +2,9 @@
 CPU: the dyadic GOP of 4 (anchor P, a reference B at the midpoint dropped
 by MMCO at the next anchor, two leaf Bs; QP cascade qp, qp+1, qp+2) under
 CABAC in 2 row-band slices, byte for byte against ``TPUAVCCodec``, and both
-decoders on the port's stream."""
+decoders on the port's stream.  The port reads its frames from a generator,
+one GOP ahead; a 7-frame clip ends inside its second GOP (anchors 0, 4 and
+6, frame 5 a plain B)."""
 
 import dataclasses
 
@@ -36,14 +38,29 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def encoded():
-    frames = smooth_frames(N, H, W)
-    j_res, j_stream = TPUAVCCodec(JP, **KW).encode_sequence(frames)
+def jax_codec():
+    """One JAX codec for both clips, so that they share its compiles."""
+    return TPUAVCCodec(JP, **KW)
+
+
+def _encode(jax_codec, n):
+    frames = smooth_frames(n, H, W)
+    j_res, j_stream = jax_codec.encode_sequence(frames)
     tp = params_from_dict(dataclasses.asdict(JP))
     codec = DeviceAVCCodec(tp, device="cpu", **KW)
-    t_res, t_stream = codec.encode_sequence(frames)
+    t_res, t_stream = codec.encode_sequence(f for f in frames)
     return dict(j_res=j_res, j_stream=j_stream, t_res=t_res,
                 t_stream=t_stream, host_ms=codec.host_ms)
+
+
+@pytest.fixture(scope="module")
+def encoded(jax_codec):
+    return _encode(jax_codec, N)
+
+
+@pytest.fixture(scope="module")
+def encoded7(jax_codec):
+    return _encode(jax_codec, 7)
 
 
 def test_stream_byte_identical(encoded):
@@ -81,3 +98,25 @@ def test_host_ms_per_frame(encoded):
     assert len(encoded["host_ms"]["pack"]) == N
     assert len(encoded["host_ms"]["deblock"]) == N
     assert all(ms > 0 for ms in encoded["host_ms"]["pack"])
+
+
+def test_seven_frames_stream_byte_identical(encoded7):
+    assert [r.frame_type for r in encoded7["t_res"]] == [
+        "IDR", "B", "B", "B", "P", "B", "P"]
+    assert encoded7["t_stream"] == encoded7["j_stream"]
+    for j, t in zip(encoded7["j_res"], encoded7["t_res"]):
+        assert (t.frame_type, t.bits, t.psnr_y) == (j.frame_type, j.bits,
+                                                    j.psnr_y)
+        for a, b in zip(t.recon, j.recon):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("decoder", ["port", "jax"])
+def test_seven_frames_decoders_reproduce_recon(encoded7, decoder):
+    stream = encoded7["t_stream"]
+    dec = (AVCDecoder().decode(stream) if decoder == "port"
+           else AVCCodec.decode_sequence(stream)[0])
+    assert len(dec) == 7
+    for planes, r in zip(dec, encoded7["t_res"]):
+        for a, b in zip(planes, r.recon):
+            np.testing.assert_array_equal(a, b)

@@ -294,3 +294,144 @@ def test_helper_switches_the_tracer_on_when_imported():
     trace.disable()
     importlib.reload(PT)
     assert trace.enabled()
+
+
+# ---- the hierarchical-B CABAC cell -----------------------------------------
+
+HIERB_METRICS = ("avc.b_frame_ms", "avc.b_scan_ms", "avc.cabac_pack_ms",
+                 "avc.b_wait_ms")
+HIERB_TYPES = ["IDR", "B", "B", "B", "P", "B", "P"]
+
+
+@pytest.fixture(scope="module")
+def encoded_hierb():
+    """The hierarchical-B cell's codec at 64x64 (the traffic's square cut
+    to 32 pels) on a 7-frame clip: IDR, a GOP of 4 and a GOP cut to 2.
+    ((results, stream) with tracing off, (results, stream) with it on, the
+    records of the traced run)."""
+    from benchmark.harness.registry import Registry
+    reg = Registry()
+    config = reg.config("avc_cif_hierb")
+    settings = dict(config["settings"], width=64, height=64)
+    traffic = dict(reg.traffic("pan"), square_size=32)
+    frames = reg.generator(traffic["generator"]).make_pool(
+        traffic, 64, 64, 3000000019)[0][:7]
+    system = reg.system(config["system"])
+    codec = system.build(settings, "cpu")
+    trace.disable()
+    off = system.encode(codec, iter(frames))
+    trace.reset()
+    trace.enable()
+    on = system.encode(codec, iter(frames))
+    trace.disable()
+    recs = trace.records()
+    trace.reset()
+    return off, on, recs
+
+
+def test_hierb_stream_is_the_same_with_tracing_on_and_off(encoded_hierb):
+    (res_off, stream_off), (res_on, stream_on), _ = encoded_hierb
+    assert stream_on == stream_off
+    assert [r.bits for r in res_on] == [r.bits for r in res_off]
+
+
+def test_hierb_one_frame_taken_and_done_per_frame(encoded_hierb):
+    _, (results, _), recs = encoded_hierb
+    frames = [r for r in recs if r["kind"] == "frame"]
+    assert [(f["seq"], f["frame"]) for f in frames] == [(0, i)
+                                                        for i in range(7)]
+    assert [f["type"] for f in frames] == [r.frame_type for r in results] \
+        == HIERB_TYPES
+    # the GOP's frames are all taken before its anchor is done
+    start = {f["frame"]: f["start_ns"] for f in frames}
+    end = {f["frame"]: f["end_ns"] for f in frames}
+    assert max(start[k] for k in (1, 2, 3, 4)) <= end[4]
+    assert max(start[k] for k in (5, 6)) <= end[6]
+    assert end[0] <= start[1]
+
+
+def test_hierb_spans_once_per_picture_with_their_frames(encoded_hierb):
+    _, _, recs = encoded_hierb
+    spans = [r for r in recs if r["kind"] == "span"]
+    assert all(s["seq"] == 0 for s in spans if s["name"] != "avc.prep")
+
+    def frames_of(name):
+        return [s["frame"] for s in spans if s["name"] == name]
+
+    # decode order: IDR, anchor 4, reference B 2, leaves 1 and 3, anchor 6,
+    # plain B 5
+    assert frames_of("avc.b.frame") == [2, 1, 3, 5]
+    assert frames_of("avc.b.wait") == [2, 1, 3, 5]
+    assert frames_of("avc.wait") == [0, 4, 6]
+    assert frames_of("avc.frame") == [0, 4, 6]
+    assert frames_of("avc.pack") == [0, 4, 2, 1, 3, 6, 5]
+    assert frames_of("avc.host_deblock") == [0, 4, 2, 1, 3, 6, 5]
+    ids = {s["id"]: s for s in spans}
+    for s in spans:
+        if s["name"].startswith("avc.scan.") or s["name"] == "avc.search":
+            parent = ids[s["parent"]]
+            assert parent["name"] in ("avc.frame", "avc.b.frame")
+            assert parent["frame"] == s["frame"]
+    by_frame = {f["frame"]: f for f in recs if f["kind"] == "frame"}
+    for s in spans:
+        if s["frame"] is not None:
+            f = by_frame[s["frame"]]
+            assert f["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= f["end_ns"]
+
+
+@pytest.mark.parametrize("name", HIERB_METRICS)
+def test_hierb_reader_returns_none_without_its_span(name, monkeypatch):
+    from benchmark.harness import program_trace as PT
+    reader = _reg().metric(name)
+    assert (reader.SOURCE, reader.MOVES) == ("program_span", "fps")
+    rec = {"types": ["IDR", "B", "P"]}
+    monkeypatch.setattr(PT, "records", lambda: [])
+    assert reader.read(rec) is None
+    recs = _clip(0, ["IDR", "P"]) + _clip(1, ["IDR", "B", "P"]) + [
+        _span("avc.frame", 1, 2, 5.0), _span("avc.wait", 1, 2, None)]
+    monkeypatch.setattr(PT, "records", lambda: recs)
+    assert reader.read(rec) is None
+
+
+@pytest.mark.parametrize("name,span,device,per", [
+    ("avc.b_frame_ms", "avc.b.frame", True, 2),
+    ("avc.cabac_pack_ms", "avc.pack", False, 4),
+    ("avc.b_wait_ms", "avc.b.wait", False, 2)])
+def test_hierb_reader_divides_the_window_spans_by_its_pictures(
+        name, span, device, per, monkeypatch):
+    from benchmark.harness import program_trace as PT
+    reader = _reg().metric(name)
+    types = ["IDR", "B", "B", "P"]
+    # 6 ms a span on the device, 2 ms on the host, on every picture of
+    # the warm, window and profiled clips; only the window's count
+    recs = (_clip(0, types) + _clip(1, types) + _clip(2, types)
+            + [_span(span, s, i, 6.0) for s in (0, 1, 2) for i in range(4)])
+    monkeypatch.setattr(PT, "records", lambda: recs)
+    ms = 6.0 if device else 2.0
+    assert reader.read({"types": types}) == pytest.approx(4 * ms / per)
+
+
+def test_hierb_scan_reader_takes_the_scans_of_b_pictures(monkeypatch):
+    from benchmark.harness import program_trace as PT
+    reader = _reg().metric("avc.b_scan_ms")
+    types = ["IDR", "B", "B", "P"]
+
+    def span(name, seq, idx, ms, sid, parent=None):
+        return dict(_span(name, seq, idx, ms), id=sid, parent=parent)
+
+    recs = _clip(0, types) + _clip(1, types) + [
+        span("avc.frame", 1, 3, 50.0, 10),
+        span("avc.scan.replay", 1, 3, 40.0, 11, 10),      # the anchor's
+        span("avc.b.frame", 1, 1, 50.0, 20),
+        span("avc.scan.eager", 1, 1, 1.0, 21, 20),
+        span("avc.scan.capture", 1, 1, 2.0, 22, 20),
+        span("avc.scan.replay", 1, 1, 7.0, 23, 20),
+        span("avc.b.frame", 1, 2, 50.0, 30),
+        span("avc.scan.replay", 1, 2, 10.0, 31, 30),
+        span("avc.b.frame", 0, 1, 50.0, 40),               # warm clip
+        span("avc.scan.replay", 0, 1, 99.0, 41, 40)]
+    monkeypatch.setattr(PT, "records", lambda: recs)
+    assert reader.read({"types": types}) == pytest.approx(20.0 / 2)
+    recs.append(span("avc.scan.replay", 1, 2, None, 32, 30))
+    assert reader.read({"types": types}) is None

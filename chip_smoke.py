@@ -835,9 +835,10 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
     """Device ms of each stage of one P frame (CUDA events around the calls
     ``device_enc.encode_frame`` makes) at ``qp`` (the frame QP or one per
     slice), the second of two runs.  The decision scan's stages come from
-    its spans (:func:`scan_stages`): the eager first step, the graph
-    replays of the others and ``graph_capture`` between them, during which
-    the card waits for the host to capture the step.  ``host_enqueue`` is
+    its spans (:func:`scan_stages`): the first run misses the scan's plan
+    (the thread's plans are dropped before it), so it runs step 0 eagerly
+    and captures the step while the card waits (``miss_*``); the second
+    replays the plan's graph for every step.  ``host_enqueue`` is
     the host clock from the first call to the return of the last, before
     the sync: when it nears the device span, the host has no time left to
     pack a frame while the card works."""
@@ -875,24 +876,31 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
         ev[4].synchronize()
         return ev, host_ms
 
-    run()
+    DE.drop_plans()
+    (ev_miss, _), recs_miss = traced(run)
     (ev, host_ms), recs = traced(run)
     return {"stage_a_search": ev[0].elapsed_time(ev[1]),
             "stage_b_subpel": ev[1].elapsed_time(ev[2]),
             **scan_stages(recs, ev[2].elapsed_time(ev[3])),
+            **scan_stages(recs_miss, ev_miss[2].elapsed_time(ev_miss[3]),
+                          "miss_"),
             "prep_ref": ev[3].elapsed_time(ev[4]),
             "device_total": ev[0].elapsed_time(ev[4]),
             "host_enqueue": host_ms}
 
 
-def scan_stages(records, decide_ms: float) -> dict:
-    """The decision scan's stages from its spans: the eager first step, the
-    graph capture (the card waits for the host) and the replays; the scan
-    is the whole ``decide`` call (``decide_ms``) less the capture."""
-    got = stage_ms(records, {"decision_first_step": "avc.scan.eager",
-                             "graph_capture": "avc.scan.capture",
+def scan_stages(records, decide_ms: float, prefix: str = "") -> dict:
+    """The decision scan's stages from its spans, each key with ``prefix``:
+    the copy-in and reset, the eager first step and the graph capture (the
+    card waits for the host; both 0 on a plan hit), and the replays; the
+    scan is the whole ``decide`` call (``decide_ms``) less the capture."""
+    got = stage_ms(records, {"scan_load": "avc.scan.load",
                              "decision_replays": "avc.scan.replay"})
-    return {"decision_scan": decide_ms - got["graph_capture"], **got}
+    for key, name in (("decision_first_step", "avc.scan.eager"),
+                      ("graph_capture", "avc.scan.capture")):
+        got[key] = sum(r["device_ms"] for r in records if r["name"] == name)
+    got["decision_scan"] = decide_ms - got["graph_capture"]
+    return {prefix + k: v for k, v in got.items()}
 
 
 def avc_profile(codec, frame, ref_rec, profile_dir=None):
@@ -1220,13 +1228,16 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
         ev[6].synchronize()
         return ev, host_ms
 
-    run()
+    DE.drop_plans()
+    (ev_miss, _), recs_miss = traced(run)
     (ev, host_ms), recs = traced(run)
     return {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
             "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
             "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
             "stage_b_subpel_l1": ev[3].elapsed_time(ev[4]),
             **scan_stages(recs, ev[4].elapsed_time(ev[5])),
+            **scan_stages(recs_miss, ev_miss[4].elapsed_time(ev_miss[5]),
+                          "miss_"),
             "prep_ref": ev[5].elapsed_time(ev[6]),
             "device_total": ev[0].elapsed_time(ev[6]),
             "host_enqueue": host_ms}

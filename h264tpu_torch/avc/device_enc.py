@@ -44,6 +44,7 @@ weighting is applied to the reference planes by the caller.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -1397,88 +1398,169 @@ def search(org_y, ref_ups, sr: int, qp, n_slices: int = 1,
     return mv_q.permute(2, 0, 1, 3), sad_q.permute(2, 0, 1)
 
 
-def _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr: int,
-                  sb_h: int, wp_c=None):
-    """Per-MB original blocks and the flat reference planes the decision
-    scan gathers from, and the chroma WP weights ``wp_c`` [R, 4] (None: no
-    weighting)."""
+def _org_blocks(org_y, org_u, org_v) -> dict:
+    """A picture's per-MB original blocks: org16 [nmb, 16, 16] and orgc
+    [nmb, 2, 8, 8] int32."""
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
-    dev = org_y.device
     org16 = org_y.to(torch.int32).reshape(mb_h, 16, mb_w, 16).transpose(1, 2)
     orgc = torch.stack([org_u, org_v]).to(torch.int32).reshape(
         2, mb_h, 8, mb_w, 8).permute(1, 3, 0, 2, 4)
-    lanes = _ar(mb_h, dev)
     return dict(org16=org16.reshape(mb_h * mb_w, 16, 16),
-                orgc=orgc.reshape(mb_h * mb_w, 2, 8, 8),
-                ups=ref_ups, ups_flat=ref_ups.reshape(-1),
-                us=ref_us, us_flat=ref_us.reshape(-1),
-                vs_flat=ref_vs.reshape(-1),
-                P=luma_pad(sr), PC=chroma_pad(sr), band=lanes // sb_h,
+                orgc=orgc.reshape(mb_h * mb_w, 2, 8, 8))
+
+
+def _frame_view(org16, orgc, ups, us, vs, band, sr: int, sb_h: int,
+                wp_c=None) -> dict:
+    """What a decision scan's step reads of the picture and of one list's
+    reference stacks: the original blocks, the stacks and the flat planes
+    (views of them) the MC gathers read, each lane's band, and the chroma
+    WP weights ``wp_c`` [R, 4] (None: no weighting)."""
+    return dict(org16=org16, orgc=orgc, ups=ups, ups_flat=ups.view(-1),
+                us=us, us_flat=us.view(-1), vs_flat=vs.view(-1),
+                P=luma_pad(sr), PC=chroma_pad(sr), band=band,
                 band_h=sb_h * 16, wp_c=wp_c)
 
 
-_CAPTURE = threading.local()
+# per thread (GOP worker threads share the card): the capture side stream
+# and the scan plans
+_THREAD = threading.local()
+_MAX_PLANS = 16
 
 
-def _capture(step, t_dev):
-    """Capture ``step(t_dev)`` into a CUDA graph; returns (graph, output).
+def _plans() -> OrderedDict:
+    """This thread's scan plans by key, least recently used first."""
+    plans = getattr(_THREAD, "plans", None)
+    if plans is None:
+        plans = _THREAD.plans = OrderedDict()
+    return plans
+
+
+def drop_plans():
+    """Forget this thread's scan plans, their buffers and graphs: the next
+    scan of every shape misses, as on a new thread."""
+    _plans().clear()
+
+
+def _capture(run, t_dev):
+    """Capture ``run(t_dev)`` into a CUDA graph.
 
     Threads that share the card (GOP workers) may launch, allocate and
     synchronize while one of them captures: the capture runs in
     thread-local mode, which restricts only the capturing thread, on a
     side stream of the capturing thread's own."""
     dev = t_dev.device
-    side = getattr(_CAPTURE, "stream", None)
+    side = getattr(_THREAD, "stream", None)
     if side is None or side.device != dev:
-        side = _CAPTURE.stream = torch.cuda.Stream(dev)
+        side = _THREAD.stream = torch.cuda.Stream(dev)
     cur = torch.cuda.current_stream(dev)
     side.wait_stream(cur)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
-            out = step(t_dev)
+            run(t_dev)
         finally:
             graph.capture_end()
     cur.wait_stream(side)
-    return graph, out
+    return graph
 
 
-def _scan(step, T: int, dev) -> list:
-    """Run the ``T`` wavefront steps of a decision scan: ``step(t)`` with a
-    0-dim int64 step index on the device, returning a dict of per-lane
-    symbols.  On CUDA every step launches the same kernels on the same
-    shapes: step 0 runs eagerly (so every constant table is on the card),
-    one step is captured into a CUDA graph (:func:`_capture`) and replayed
-    for the others.  Spans: ``avc.scan.eager`` (step 0),
-    ``avc.scan.capture`` (the card waits while the host captures) and
-    ``avc.scan.replay`` (steps 1 to T - 1 with their output clones; eager
-    steps off the card)."""
-    t_dev = torch.zeros((), dtype=torch.int64, device=dev)
-    with trace.span("avc.scan.eager", dev):
-        ys = [step(t_dev)]
-    if dev.type == "cuda" and T > 1:
-        with trace.span("avc.scan.capture", dev):
-            graph, out = _capture(step, t_dev)
-        with trace.span("avc.scan.replay", dev):
-            for t in range(1, T):
-                t_dev.fill_(t)
-                graph.replay()
-                ys.append({k: v.clone() for k, v in out.items()})
-        del graph
-    else:
-        with trace.span("avc.scan.replay", dev):
-            for t in range(1, T):
-                t_dev.fill_(t)
-                ys.append(step(t_dev))
-    return ys
+class _Plan:
+    """The static buffers of one decision scan's shape and options: the
+    copies of a picture's tensors that the step closes over (``inp``), the
+    band state (``st``, reset to ``st0``'s values for every picture), the
+    step index ``t``, the [T, L, ...] outputs by step (``ys``, made at the
+    first step) and, on CUDA, the graph of one step."""
+
+    def __init__(self, inp: dict, st0: dict, T: int, dev, make_step):
+        self.inp = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                    for k, v in inp.items()}
+        self.st0 = st0
+        self.st = {k: torch.empty(shape, dtype=torch.int32, device=dev)
+                   for k, (shape, _) in st0.items()}
+        self.t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.T = T
+        self.step = make_step(self.inp, self.st)
+        self.ys = None
+        self.graph = None
+
+    def load(self, inp: dict):
+        """Copy a picture's tensors in and reset the band state."""
+        for k, v in inp.items():
+            self.inp[k].copy_(v)
+        for k, (_, v) in self.st0.items():
+            self.st[k].fill_(v)
+
+    def run(self, t):
+        """One step, its outputs written at index ``t`` of ``ys``."""
+        out = self.step(t)
+        if self.ys is None:
+            self.ys = {k: torch.empty((self.T,) + v.shape, dtype=v.dtype,
+                                      device=v.device)
+                       for k, v in out.items()}
+        at = t.reshape(1)
+        for k, v in out.items():
+            self.ys[k].index_copy_(0, at, v[None])
+
+
+def _scan(key: tuple, inp: dict, st0: dict, make_step, mb_h: int, mb_w: int,
+          sb_h: int, dev):
+    """Run the ``mb_w + 2*(sb_h - 1)`` wavefront steps of a decision scan.
+
+    ``inp``: the picture's tensors; ``st0``: the band state's (shape,
+    initial value) by name; ``make_step(inp, st)`` returns ``step(t)``, one
+    wavefront step over static copies of both (``t`` a 0-dim int64 tensor
+    on the device) that returns a dict of per-lane symbols.  Every picture
+    whose ``key`` and tensor shapes match launches the same kernels on the
+    same shapes, so the thread keeps one :class:`_Plan` per such key (the
+    ``_MAX_PLANS`` most recently used): a picture copies its tensors into
+    the plan and, on CUDA, replays the plan's graph of one step for every
+    step.  On a miss, step 0 runs eagerly (putting every constant table on
+    the card and sizing the outputs) and the step is captured; the CPU
+    runs every step eagerly.  Spans: ``avc.scan.load`` (copy-in and
+    reset), on a miss ``avc.scan.eager`` and ``avc.scan.capture`` (the
+    card waits while the host captures), and ``avc.scan.replay``.  Returns
+    (sym dict of [mb_h * mb_w, ...] tensors in raster order, band state):
+    fresh tensors, which the next picture's load does not touch."""
+    key = key + (str(dev),) + tuple((k, tuple(v.shape), v.dtype)
+                                    for k, v in inp.items())
+    T = mb_w + 2 * (sb_h - 1)
+    plans = _plans()
+    plan = plans.pop(key, None)
+    miss = plan is None
+    if miss:
+        plan = _Plan(inp, st0, T, dev, make_step)
+    t = plan.t
+    with trace.span("avc.scan.load", dev):
+        plan.load(inp)
+    if miss:
+        with trace.span("avc.scan.eager", dev):
+            t.zero_()
+            plan.run(t)
+        if dev.type == "cuda":
+            with trace.span("avc.scan.capture", dev):
+                plan.graph = _capture(plan.run, t)
+    plans[key] = plan                   # the most recently used last
+    if len(plans) > _MAX_PLANS:
+        plans.popitem(last=False)
+    with trace.span("avc.scan.replay", dev):
+        for i in range(int(miss), T):
+            t.fill_(i)
+            if plan.graph is None:
+                plan.run(t)
+            else:
+                plan.graph.replay()
+    # MB (row, c) ran at step c + 2 * (row % sb_h) in lane row
+    rows = _ar(mb_h * mb_w, dev) // mb_w
+    t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
+    sym = {k: y[t_idx, rows] for k, y in plan.ys.items()}
+    return sym, {k: v.clone() for k, v in plan.st.items()}
 
 
 def _lane_cfg(qp, mb_h: int, sb_h: int, chroma_qp_offset: int, dev) -> dict:
     """The per-lane QP tensors of a decision scan: qp, its chroma QP and
-    the two lambdas, each [mb_h]; made before the scan's steps (and so
-    before the CUDA-graph capture)."""
+    the two lambdas, each [mb_h]."""
     qp_l = lane_qp(qp, mb_h, mb_h // sb_h, dev)
     qpc_tab = device_const(
         f"chroma_qp{chroma_qp_offset}",
@@ -1486,6 +1568,24 @@ def _lane_cfg(qp, mb_h: int, sb_h: int, chroma_qp_offset: int, dev) -> dict:
                  np.int32), dev)
     lam, lam_me = lane_lambdas(qp_l)
     return dict(qp=qp_l, qpc=qpc_tab[qp_l.long()], lam=lam, lam_me=lam_me)
+
+
+def _band_state(S: int, sb_h: int, W: int, lists) -> dict:
+    """(shape, initial value) of each band state plane: the reconstruction
+    with its top and left border, one 4x4-cell MV field (mv, ref) per
+    name suffix in ``lists``, the nonzero and intra-mode cells, and the
+    adaptive rounding offsets."""
+    sh4, w4 = sb_h * 4, W // 4
+    st0 = dict(rec_y=((S, sb_h * 16 + 1, W + 9), 0),
+               rec_u=((S, sb_h * 8 + 1, W // 2 + 1), 0),
+               rec_v=((S, sb_h * 8 + 1, W // 2 + 1), 0))
+    for x in lists:
+        st0["mv" + x] = ((S, sh4, w4, 2), 0)
+        st0["ref" + x] = ((S, sh4, w4), -2)
+    st0.update(nnz_y=((S, sh4, w4), 0), i4m=((S, sh4, w4), -1),
+               ar_i=((S, 4, 4), Q.OFFSET_INTRA),
+               ar_p=((S, 4, 4), Q.OFFSET_INTER))
+    return st0
 
 
 def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
@@ -1503,68 +1603,68 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
     QP per slice, as one per-lane tensor through every step
     (:func:`_lane_cfg`); ``wp_c``: the chroma WP weights.  Returns (sym
     dict of [nmb, ...] tensors in raster order, band state dict).  The
-    steps run in :func:`_scan`'s spans."""
+    steps run in :func:`_scan`, from its plan for this shape."""
     dev = org_y.device
     H, W = org_y.shape
     mb_h, mb_w = H // 16, W // 16
     S = mb_h // sb_h
-    sh4, w4 = sb_h * 4, mb_w * 4
-    qm = None
-    if scaling_default:
-        # the spec default matrices' weighted LevelScale / InvLevelScale
-        qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
-                  for m, t in tabs.items()}
-              for k, tabs in QM.enc_tables_default().items()}
-    cfg = dict(_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev),
-               n_valid=n_valid, mb_w=mb_w, intra_only=intra_only,
-               transform8=transform8, sub8x8=sub8x8, qm=qm)
-    fr = _frame_inputs(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, sr,
-                       sb_h, wp_c)
+    inp = dict(_org_blocks(org_y, org_u, org_v), ups=ref_ups, us=ref_us,
+               vs=ref_vs, mv_q=mv_q, sad_q=sad_q,
+               force=force_intra.reshape(-1).to(torch.bool),
+               **_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev))
+    if wp_c is not None:
+        inp["wp_c"] = wp_c
 
-    def full(shape, v):
-        return torch.full(shape, v, dtype=torch.int32, device=dev)
+    def make_step(b, st):
+        qm = None
+        if scaling_default:
+            # the spec default matrices' weighted LevelScale / InvLevelScale
+            qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
+                      for m, t in tabs.items()}
+                  for k, tabs in QM.enc_tables_default().items()}
+        cfg = dict(qp=b["qp"], qpc=b["qpc"], lam=b["lam"],
+                   lam_me=b["lam_me"], n_valid=n_valid, mb_w=mb_w,
+                   intra_only=intra_only, transform8=transform8,
+                   sub8x8=sub8x8, qm=qm)
+        lane = _ar(mb_h, dev)
+        band = lane // sb_h
+        lr = lane % sb_h
+        fr = _frame_view(b["org16"], b["orgc"], b["ups"], b["us"], b["vs"],
+                         band, sr, sb_h, b.get("wp_c"))
 
-    st = dict(rec_y=full((S, sb_h * 16 + 1, W + 9), 0),
-              rec_u=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
-              rec_v=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
-              mv=full((S, sh4, w4, 2), 0), ref=full((S, sh4, w4), -2),
-              nnz_y=full((S, sh4, w4), 0), i4m=full((S, sh4, w4), -1),
-              ar_i=full((S, 4, 4), Q.OFFSET_INTRA),
-              ar_p=full((S, 4, 4), Q.OFFSET_INTER))
-    lane = _ar(mb_h, dev)
-    band = lane // sb_h
-    lr = lane % sb_h
-    force = force_intra.reshape(-1).to(torch.bool)
+        def step(t):
+            """One wavefront step; ``t`` a 0-dim int64 tensor on the
+            device."""
+            cs = t - 2 * lr
+            valid = (cs >= 0) & (cs < mb_w)
+            mbx = torch.clamp(cs, 0, mb_w - 1)
+            g = lane * mb_w + mbx
+            lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx,
+                      g=g)
+            upd, out = _mb_compute(st, lc, fr, b["mv_q"][g], b["sad_q"][g],
+                                   b["force"][g], cfg)
+            _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"],
+                 valid)
+            _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1,
+                 upd["recc"][:, 0], valid)
+            _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1,
+                 upd["recc"][:, 1], valid)
+            for key, val in (("mv", "mv_cells"), ("ref", "ref_cells"),
+                             ("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
+                _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
+            vm = valid[:, None, None]
+            for key in ("ar_i", "ar_p"):
+                add = torch.where(vm, upd[key + "_add"], 0).reshape(
+                    S, sb_h, 4, 4).sum(1, dtype=torch.int32)
+                st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
+            return out
 
-    def step(t):
-        """One wavefront step; ``t`` a 0-dim int64 tensor on the device."""
-        cs = t - 2 * lr
-        valid = (cs >= 0) & (cs < mb_w)
-        mbx = torch.clamp(cs, 0, mb_w - 1)
-        g = lane * mb_w + mbx
-        lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx, g=g)
-        upd, out = _mb_compute(st, lc, fr, mv_q[g], sad_q[g], force[g], cfg)
-        _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"], valid)
-        _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 0],
-             valid)
-        _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 1],
-             valid)
-        for key, val in (("mv", "mv_cells"), ("ref", "ref_cells"),
-                         ("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
-            _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
-        vm = valid[:, None, None]
-        for key in ("ar_i", "ar_p"):
-            add = torch.where(vm, upd[key + "_add"], 0).reshape(
-                S, sb_h, 4, 4).sum(1, dtype=torch.int32)
-            st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
-        return out
+        return step
 
-    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev)
-    # MB (row, c) ran at step c + 2 * (row % sb_h) in lane row
-    rows = _ar(mb_h * mb_w, dev) // mb_w
-    t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
-    sym = {k: torch.stack([y[k] for y in ys])[t_idx, rows] for k in ys[0]}
-    return sym, st
+    key = ("decide", sr, sb_h, n_valid, intra_only, transform8, sub8x8,
+           scaling_default, chroma_qp_offset)
+    return _scan(key, inp, _band_state(S, sb_h, W, ("",)),
+                 make_step, mb_h, mb_w, sb_h, dev)
 
 
 def assemble(sym, st, mb_h: int, mb_w: int):
@@ -1886,8 +1986,8 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
              col_mv, col_ref, qp, nv0: int, nv1: int, *, sr: int,
              sb_h: int, chroma_qp_offset: int = 0):
     """The B frame's wavefront decision scan over every row-band slice at
-    once, stepped like :func:`decide` (one step eager, the others replayed
-    from one CUDA graph on the card, in :func:`_scan`'s spans).
+    once, stepped like :func:`decide` (in :func:`_scan`, from its plan for
+    this shape).
 
     r0/r1: (ups, us, vs) reference stacks of lists 0 and 1; mv*_q [nmb, R,
     2] / sad*_q [nmb, R] the 16x16 search results of each list; col_mv
@@ -1901,58 +2001,60 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
     mb_h, mb_w = H // 16, W // 16
     S = mb_h // sb_h
     sh4, w4 = sb_h * 4, mb_w * 4
-    cfg = dict(_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev),
-               nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
-    fr0 = _frame_inputs(org_y, org_u, org_v, *r0, sr, sb_h)
-    fr1 = _frame_inputs(org_y, org_u, org_v, *r1, sr, sb_h)
-    col = dict(mv=col_mv.to(torch.int32).reshape(S, sh4, w4, 2),
-               ref=col_ref.to(torch.int32).reshape(S, sh4, w4))
+    inp = dict(_org_blocks(org_y, org_u, org_v),
+               **{f"{k}{i}": x for i, r in enumerate((r0, r1))
+                  for k, x in zip(("ups", "us", "vs"), r)},
+               mv0_q=mv0_q, sad0_q=sad0_q, mv1_q=mv1_q, sad1_q=sad1_q,
+               col_mv=col_mv.to(torch.int32).reshape(S, sh4, w4, 2),
+               col_ref=col_ref.to(torch.int32).reshape(S, sh4, w4),
+               **_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev))
 
-    def full(shape, v):
-        return torch.full(shape, v, dtype=torch.int32, device=dev)
+    def make_step(b, st):
+        cfg = dict(qp=b["qp"], qpc=b["qpc"], lam=b["lam"],
+                   lam_me=b["lam_me"], nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
+        lane = _ar(mb_h, dev)
+        band = lane // sb_h
+        lr = lane % sb_h
+        fr0, fr1 = (_frame_view(b["org16"], b["orgc"], b[f"ups{i}"],
+                                b[f"us{i}"], b[f"vs{i}"], band, sr, sb_h)
+                    for i in (0, 1))
+        col = dict(mv=b["col_mv"], ref=b["col_ref"])
 
-    st = dict(rec_y=full((S, sb_h * 16 + 1, W + 9), 0),
-              rec_u=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
-              rec_v=full((S, sb_h * 8 + 1, W // 2 + 1), 0),
-              mv0=full((S, sh4, w4, 2), 0), ref0=full((S, sh4, w4), -2),
-              mv1=full((S, sh4, w4, 2), 0), ref1=full((S, sh4, w4), -2),
-              nnz_y=full((S, sh4, w4), 0), i4m=full((S, sh4, w4), -1),
-              ar_i=full((S, 4, 4), Q.OFFSET_INTRA),
-              ar_p=full((S, 4, 4), Q.OFFSET_INTER))
-    lane = _ar(mb_h, dev)
-    band = lane // sb_h
-    lr = lane % sb_h
+        def step(t):
+            """One wavefront step; ``t`` a 0-dim int64 tensor on the
+            device."""
+            cs = t - 2 * lr
+            valid = (cs >= 0) & (cs < mb_w)
+            mbx = torch.clamp(cs, 0, mb_w - 1)
+            g = lane * mb_w + mbx
+            lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx,
+                      g=g)
+            upd, out = _mb_compute_b(st, lc, fr0, fr1, b["mv0_q"][g],
+                                     b["sad0_q"][g], b["mv1_q"][g],
+                                     b["sad1_q"][g], col, cfg)
+            _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"],
+                 valid)
+            _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1,
+                 upd["recc"][:, 0], valid)
+            _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1,
+                 upd["recc"][:, 1], valid)
+            for key in ("mv0", "ref0", "mv1", "ref1"):
+                _put(st[key], band, 4 * lr, 4 * mbx, upd[key + "_cells"],
+                     valid)
+            for key, val in (("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
+                _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
+            vm = valid[:, None, None]
+            for key in ("ar_i", "ar_p"):
+                add = torch.where(vm, upd[key + "_add"], 0).reshape(
+                    S, sb_h, 4, 4).sum(1, dtype=torch.int32)
+                st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
+            return out
 
-    def step(t):
-        """One wavefront step; ``t`` a 0-dim int64 tensor on the device."""
-        cs = t - 2 * lr
-        valid = (cs >= 0) & (cs < mb_w)
-        mbx = torch.clamp(cs, 0, mb_w - 1)
-        g = lane * mb_w + mbx
-        lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx, g=g)
-        upd, out = _mb_compute_b(st, lc, fr0, fr1, mv0_q[g], sad0_q[g],
-                                 mv1_q[g], sad1_q[g], col, cfg)
-        _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"], valid)
-        _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 0],
-             valid)
-        _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1, upd["recc"][:, 1],
-             valid)
-        for key in ("mv0", "ref0", "mv1", "ref1"):
-            _put(st[key], band, 4 * lr, 4 * mbx, upd[key + "_cells"], valid)
-        for key, val in (("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
-            _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
-        vm = valid[:, None, None]
-        for key in ("ar_i", "ar_p"):
-            add = torch.where(vm, upd[key + "_add"], 0).reshape(
-                S, sb_h, 4, 4).sum(1, dtype=torch.int32)
-            st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
-        return out
+        return step
 
-    ys = _scan(step, mb_w + 2 * (sb_h - 1), dev)
-    rows = _ar(mb_h * mb_w, dev) // mb_w
-    t_idx = _ar(mb_h * mb_w, dev) % mb_w + 2 * (rows % sb_h)
-    sym = {k: torch.stack([y[k] for y in ys])[t_idx, rows] for k in ys[0]}
-    return sym, st
+    key = ("decide_b", sr, sb_h, nv0, nv1, chroma_qp_offset)
+    return _scan(key, inp, _band_state(S, sb_h, W, ("0", "1")), make_step,
+                 mb_h, mb_w, sb_h, dev)
 
 
 def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
@@ -2018,8 +2120,9 @@ def assemble_b(sym, st, mb_h: int, mb_w: int):
 # slot encodes its run of bands on its own device with the band views the
 # unsharded encoder reads (the padded reference rows a band's view covers
 # are real neighbour-band pixels), and the host puts the bands back
-# together in order.  Each slot's decision scan captures its own CUDA graph
-# (``_capture`` runs per thread on a side stream of the slot's device).
+# together in order.  Slots on one device in one thread share a scan plan
+# (``_scan``): each slot's scan copies its bands in, replays and copies
+# its outputs out, in stream order.
 
 def band_slots(mesh, axis: str, mb_h: int, n_slices: int):
     """(slot devices along ``axis``, bands per slot); raises unless the

@@ -151,6 +151,78 @@ def test_p_frame_symbols_from_jax_reference_state(encoded):
     assert (sym_t["win"].numpy() != 0).any()
 
 
+def test_codec_reused_across_clips_equals_fresh_codecs():
+    """One codec that encodes two clips back to back at two QPs (the first
+    with a forced intra MB row) writes the bytes of a fresh codec per clip
+    on a thread with no scan plans: the second clip's scans reuse the
+    first's plans, and nothing of the first clip stays in them."""
+    H, W = 48, 64
+    tp = AVCParams(width=W, height=H, qp=36, num_ref_frames=2)
+    force = np.zeros((H // 16, W // 16), bool)
+    force[1] = True
+    clips = [(smooth_frames(3, H, W, seed=1), 36,
+              lambda i: force if i == 2 else None),
+             (smooth_frames(3, H, W, seed=2), 30, lambda i: None)]
+
+    def codec():
+        return DeviceAVCCodec(tp, search_range=4, device="cpu")
+
+    one = codec()
+    reused = [one.encode_sequence(f, qp=q, force_intra=fi)[1]
+              for f, q, fi in clips]
+    fresh = []
+    for f, q, fi in clips:
+        DE.drop_plans()
+        fresh.append(codec().encode_sequence(f, qp=q, force_intra=fi)[1])
+    assert reused == fresh and reused[0] != reused[1]
+
+
+def test_scan_outputs_share_no_storage_with_a_plan():
+    """What ``decide``/``decide_b`` return, and ``assemble``'s views of it,
+    own their storage: no tensor shares one with a plan's buffers, and a
+    later scan through the same plan leaves them as they were."""
+    H, W, sr, qp = 48, 64, 4, 30
+    frames = smooth_frames(3, H, W, seed=3)
+    planes = [tuple(torch.as_tensor(pl).to(torch.int32) for pl in f)
+              for f in frames]
+    ups, us, vs = (x[None] for x in DE.prep_ref(*planes[0], sr))
+    ref = (ups, us, vs)
+    col_mv = torch.zeros((H // 4, W // 4, 2), dtype=torch.int32)
+    col_ref = torch.full((H // 4, W // 4), -1, dtype=torch.int32)
+    force = torch.zeros((H // 16, W // 16), dtype=torch.bool)
+
+    def scans(y, u, v):
+        mv_q, sad_q = DE.search(y, ups, sr, qp)
+        sym, st = DE.decide(y, u, v, ups, us, vs, mv_q, sad_q, qp, 1, force,
+                            sr=sr, sb_h=H // 16, intra_only=False)
+        mv16, sad16 = (x[:, :, 0] for x in DE.search(y, ups, sr, qp,
+                                                     only16=True))
+        sym_b, st_b = DE.decide_b(y, u, v, ref, ref, mv16, sad16, mv16,
+                                  sad16, col_mv, col_ref, qp, 1, 1, sr=sr,
+                                  sb_h=H // 16)
+        rec, ctx = DE.assemble(sym, st, H // 16, W // 16)
+        rec_b, ctx_b = DE.assemble_b(sym_b, st_b, H // 16, W // 16)
+        return [sym, st, ctx, sym_b, st_b, ctx_b, dict(enumerate(rec)),
+                dict(enumerate(rec_b))]
+
+    DE.drop_plans()
+    first = scans(*planes[1])
+    kept = [{k: t.clone() for k, t in d.items()} for d in first]
+    second = scans(*planes[2])
+    plans = list(DE._plans().values())
+    assert len(plans) == 2
+    owned = {t.untyped_storage().data_ptr() for pl in plans
+             for d in (pl.inp, pl.st, pl.ys, {"t": pl.t}) for t in d.values()}
+    for d in first + second:
+        for k, t in d.items():
+            assert t.untyped_storage().data_ptr() not in owned, k
+    for d, c in zip(first, kept):
+        for k in d:
+            assert torch.equal(d[k], c[k]), k
+    assert not all(torch.equal(a[k], b[k]) for a, b in zip(first, second)
+                   for k in a)
+
+
 def test_encode_loads_no_jax():
     code = (
         "import sys, numpy as np\n"

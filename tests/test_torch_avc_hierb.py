@@ -120,3 +120,26 @@ def test_seven_frames_decoders_reproduce_recon(encoded7, decoder):
     for planes, r in zip(dec, encoded7["t_res"]):
         for a, b in zip(planes, r.recon):
             np.testing.assert_array_equal(a, b)
+
+
+def test_reused_plans_give_the_jax_bytes(encoded):
+    """A second pass through one codec replays every picture from the
+    scan plans that the first made (a load and replays, no eager step) and
+    writes ``TPUAVCCodec``'s bytes."""
+    from h264tpu_torch import trace
+    frames = smooth_frames(N, H, W)
+    codec = DeviceAVCCodec(params_from_dict(dataclasses.asdict(JP)),
+                           device="cpu", **KW)
+    codec.encode_sequence(iter(frames))
+    trace.reset()
+    trace.enable()
+    try:
+        _, stream = codec.encode_sequence(iter(frames))
+    finally:
+        trace.disable()
+    names = [r["name"] for r in trace.records() if r["kind"] == "span"]
+    trace.reset()
+    assert stream == encoded["j_stream"]
+    assert names.count("avc.scan.load") == names.count("avc.scan.replay") \
+        == N
+    assert "avc.scan.eager" not in names

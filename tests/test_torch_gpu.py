@@ -292,21 +292,26 @@ def test_native_stages_equal_twins_on_card_frames():
             == PK.pack_p_slice(sym, p, 28, frame_num=1, num_ref=1, **rows)
 
 
+def _hierb_codec(device):
+    """chip_smoke.py's hierarchical-B CABAC codec at QCIF: Main, 3 slices,
+    one GOP of 4 after the IDR."""
+    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
+    from h264tpu_torch.avc.params import AVCParams
+    p = AVCParams(width=176, height=144, qp=28, profile_idc=77, poc_type=0,
+                  num_ref_frames=3, cabac=True)
+    return DeviceAVCCodec(p, search_range=8, n_slices=3, bframes=3,
+                          hierarchical=True, device=device)
+
+
 @pytest.mark.gpu
 def test_avc_hierb_cabac_card_stream_equals_cpu_stream():
     """A hierarchical-B CABAC QCIF stream (3 slices, IDR + one GOP of 4)
     from the card equals the CPU's, which the CPU tests hold against the
     JAX package, and decodes to the encoder's reconstruction."""
     _need_card()
-    from h264tpu_torch.avc.device_codec import DeviceAVCCodec
-    from h264tpu_torch.avc.params import AVCParams
     from h264tpu_torch.avc.slice_dec import AVCDecoder
-    p = AVCParams(width=176, height=144, qp=28, profile_idc=77, poc_type=0,
-                  num_ref_frames=3, cabac=True)
     frames = _blocky_frames(5, 144, 176)
-    out = {dev: DeviceAVCCodec(p, search_range=8, n_slices=3, bframes=3,
-                               hierarchical=True,
-                               device=dev).encode_sequence(frames)
+    out = {dev: _hierb_codec(dev).encode_sequence(frames)
            for dev in ("cpu", "cuda")}
     res, s_gpu = out["cuda"]
     assert s_gpu == out["cpu"][1]
@@ -314,6 +319,42 @@ def test_avc_hierb_cabac_card_stream_equals_cpu_stream():
     for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
         for a, b in zip(r.recon, planes):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ippp", "hierb"])
+def test_avc_scan_plans_captured_once_on_the_card(kind):
+    """A QCIF clip (IPPP, or IDR + a hierarchical-B GOP) encoded twice
+    through one codec on the card writes the CPU's bytes both times; the
+    first pass, on a thread without plans, captures one graph per plan
+    key, and the second captures none."""
+    _need_card()
+    from h264tpu_torch import trace
+    from h264tpu_torch.avc import device_enc as DE
+    make, n = dict(ippp=(lambda d: _avc_codec(144, 176, 3, d), 4),
+                   hierb=(_hierb_codec, 5))[kind]
+    frames = _blocky_frames(n, 144, 176)
+    _, s_cpu = make("cpu").encode_sequence(frames)
+    codec = make("cuda")
+    DE.drop_plans()
+    passes = []
+    try:
+        for _ in range(2):
+            trace.reset()
+            trace.enable()
+            _, stream = codec.encode_sequence(frames)
+            trace.disable()
+            names = [r["name"] for r in trace.records()
+                     if r["kind"] == "span"]
+            passes.append((stream, names.count("avc.scan.capture"),
+                           len(DE._plans())))
+    finally:
+        trace.disable()
+        trace.reset()
+    assert [s == s_cpu for s, _, _ in passes] == [True, True]
+    (_, captures, keys), (_, again, _) = passes
+    assert captures == keys == (2 if kind == "ippp" else 3)
+    assert again == 0
 
 
 def _fade_frames(n, H, W, seed=0):

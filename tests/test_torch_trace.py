@@ -163,9 +163,11 @@ def test_one_frame_taken_and_done_per_frame(encoded, kind):
     want = {"fractal": {"fractal.frame", "fractal.upload", "fractal.intra",
                         "fractal.search", "fractal.recon", "fractal.residual",
                         "fractal.deblock", "fractal.entropy"},
-            "avc": {"avc.frame", "avc.search", "avc.scan.eager",
+            "avc": {"avc.frame", "avc.search", "avc.scan.load",
                     "avc.scan.replay", "avc.wait", "avc.host_deblock",
                     "avc.prep", "avc.pack"}}[kind]
+    # the untraced pass made the scan plans: the traced one only reuses
+    # them, so no scan runs its first step eagerly
     assert names == want
     # every span belongs to a frame of the sequence and lies inside it
     by_frame = {f["frame"]: f for f in frames}
@@ -274,6 +276,26 @@ def test_new_reader_divides_the_window_spans_by_its_frames(
     if device:           # a span without device time reads nothing
         recs.append(_span(span, 1, 0, None))
         assert reader.read({"types": types}) is None
+
+
+def test_scan_hit_reader_counts_captures_per_load(monkeypatch):
+    from benchmark.harness import program_trace as PT
+    reader = _reg().metric("avc.scan_hit_pct")
+    assert (reader.SOURCE, reader.LAYER, reader.MOVES) == (
+        "program_span", "AVC decision scan", "fps")
+    types = ["IDR", "P", "P", "P"]
+    # the warm clip misses twice, the window once in four scans
+    recs = (_clip(0, types) + _clip(1, types)
+            + [_span("avc.scan.capture", 0, i, 2.0) for i in (0, 1)]
+            + [_span("avc.scan.load", s, i, 0.1) for s in (0, 1)
+               for i in range(4)]
+            + [_span("avc.scan.capture", 1, 3, 2.0)])
+    monkeypatch.setattr(PT, "records", lambda: recs)
+    assert reader.read({"types": types}) == pytest.approx(75.0)
+    # a program without the load span (the parent of the plans) reads
+    # nothing
+    recs[:] = [r for r in recs if r["name"] != "avc.scan.load"]
+    assert reader.read({"types": types}) is None
 
 
 def test_frame_latency_is_the_p90_of_the_window_frames(monkeypatch):

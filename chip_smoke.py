@@ -1222,7 +1222,7 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
         sym, st = DE.decide_b(y, u, v, refs[0], refs[1], *found, col_mv,
                               col_ref, qp, 1, 1, sr=sr, sb_h=rows)
         ev[5].record()
-        DE.prep_ref(*DE.assemble_b(sym, st, mb_h, mb_w)[0], sr)
+        DE.prep_ref(*DE.assemble(sym, st, mb_h, mb_w)[0], sr)
         ev[6].record()
         host_ms = (time.perf_counter() - t0) * 1e3
         ev[6].synchronize()

@@ -32,6 +32,8 @@ Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -94,31 +96,60 @@ def host_context(ctx: dict, rec) -> tuple:
 
 def deblock_context(ctx_np: dict, mb_h: int, mb_w: int, qp: int,
                     chroma_qp_offset: int, idr: bool,
-                    slice_qps=None) -> DeblockContext:
+                    slice_qps=None, pocs=None) -> DeblockContext:
     """The deblocking context of a frame from its host ``ctx``, as
-    ``TPUAVCCodec`` builds it: inter state for P frames, and for 8x8-
+    ``TPUAVCCodec`` builds it: inter state for P and B frames, and for 8x8-
     transform MBs the four 4x4 counts of each 8x8 summed over its cells
     (bS tests the 8x8 block's coded status; internal 4x4 edges skip).
     ``slice_qps``: one QP per row-band slice (basic-unit rate control; the
-    filter averages neighbour MB QPs across the band edge)."""
+    filter averages neighbour MB QPs across the band edge).  ``pocs``: a B
+    picture's (list-0 POC, list-1 POC), to which its two MV fields' ref
+    index 0 maps (-1 where a list is unused)."""
     ctx = DeblockContext(mb_w, mb_h, qp, chroma_qp_offset)
     if slice_qps is not None:
         rows = mb_h // len(slice_qps)
         for s, q in enumerate(slice_qps):
             ctx.mb_qp[s * rows:(s + 1) * rows, :] = q
     if not idr:
-        ctx.mb_intra = ctx_np["mb_intra"]
+        ctx.mb_intra = np.asarray(ctx_np["mb_intra"], bool)
         ctx.nnz = np.asarray(ctx_np["nnz"], np.int64)
-        ctx.mv = np.asarray(ctx_np["mv"], np.int64)
-        ctx.ref = np.asarray(ctx_np["ref"], np.int64)
-    t8 = ctx_np["t8"]
-    if t8.any():
+        if pocs is None:
+            ctx.mv = np.asarray(ctx_np["mv"], np.int64)
+            ctx.ref = np.asarray(ctx_np["ref"], np.int64)
+        else:
+            ctx.mv, ctx.mv1 = ctx_np["mv0"], ctx_np["mv1"]
+            ctx.ref, ctx.ref1 = (np.where(ctx_np["ref" + x] == 0, poc, -1)
+                                 for x, poc in zip("01", pocs))
+    t8 = ctx_np.get("t8")
+    if t8 is not None and t8.any():
         ctx.transform8 = t8
         q = ctx.nnz.reshape(mb_h * 2, 2, mb_w * 2, 2).sum(axis=(1, 3))
         q = np.repeat(np.repeat(q, 2, 0), 2, 1)
         m8 = np.repeat(np.repeat(t8, 4, 0), 4, 1)
         ctx.nnz = np.where(m8, q, ctx.nnz)
     return ctx
+
+
+_HOST_SPANS = dict(pack="avc.pack", deblock="avc.host_deblock")
+
+
+@dataclasses.dataclass
+class _Picture:
+    """A picture between its device encode and its result: its trace
+    ``(seq, idx)`` (``idx`` in display order), type ("IDR", "P" or "B"),
+    source, frame QP, per-slice QPs (basic-unit rate control), slice-header
+    arguments of its packer, a B picture's list POCs, and once downloaded,
+    its host symbols and uint8 reconstruction."""
+    seq: int
+    idx: int
+    ftype: str
+    yuv: tuple
+    qp: int
+    hdr: dict
+    qps: list = None
+    pocs: tuple = None
+    sym: dict = None
+    rec8: tuple = None
 
 
 class DeviceAVCCodec:
@@ -207,33 +238,25 @@ class DeviceAVCCodec:
         # host milliseconds per frame of the slice packer and the deblock
         self.host_ms = dict(pack=[], deblock=[])
 
-    def _encode_fn(self, intra_only: bool):
-        """The frame encoder of I or P pictures: ``device_enc.encode_frame``,
-        or its mesh-sharded twin (made once per kind)."""
-        p = self.p
-        kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
-                  intra_only=intra_only, chroma_qp_offset=p.chroma_qp_offset,
-                  transform8=p.transform_8x8, sub8x8=self.sub8x8,
-                  scaling_default=p.scaling_matrix == "default")
-        if self.mesh is None:
-            return lambda *a: DE.encode_frame(*a, **kw)
-        if intra_only not in self._sharded:
-            self._sharded[intra_only] = DE.make_sharded_encode(
-                self.mesh, self.mesh_axis, **kw)
-        return self._sharded[intra_only]
-
-    def _encode_fn_b(self):
-        """The B frame encoder: ``device_enc.encode_frame_b`` or its
-        mesh-sharded twin."""
+    def _frame_encoder(self, kind: str):
+        """The frame encoder of "I", "P" or "B" pictures:
+        ``device_enc.encode_frame`` or ``encode_frame_b``, or its
+        mesh-sharded twin (made once per kind)."""
         p = self.p
         kw = dict(mb_h=p.mb_h, mb_w=p.mb_w, sr=self.sr, n_slices=self.n_slices,
                   chroma_qp_offset=p.chroma_qp_offset)
+        if kind != "B":
+            kw.update(intra_only=kind == "I", transform8=p.transform_8x8,
+                      sub8x8=self.sub8x8,
+                      scaling_default=p.scaling_matrix == "default")
         if self.mesh is None:
-            return lambda *a: DE.encode_frame_b(*a, **kw)
-        if "b" not in self._sharded:
-            self._sharded["b"] = DE.make_sharded_encode_b(
+            return lambda *a: (DE.encode_frame_b if kind == "B"
+                               else DE.encode_frame)(*a, **kw)
+        if kind not in self._sharded:
+            self._sharded[kind] = (DE.make_sharded_encode_b if kind == "B"
+                                   else DE.make_sharded_encode)(
                 self.mesh, self.mesh_axis, **kw)
-        return self._sharded["b"]
+        return self._sharded[kind]
 
     def _is_idr(self, idx: int) -> bool:
         return idx == 0 or (self.intra_period > 0
@@ -282,8 +305,8 @@ class DeviceAVCCodec:
                 force = torch.zeros((p.mb_h, p.mb_w), dtype=torch.bool,
                                     device=self.device)
             if not refs:
-                return self._encode_fn(True)(y, u, v, *self._dummy_refs(),
-                                             qp, 0, force)
+                return self._frame_encoder("I")(
+                    y, u, v, *self._dummy_refs(), qp, 0, force)
             R = max(p.num_ref_frames, 1) if n_refs is None else n_refs
             n_valid = min(len(refs), R)
             sel = [refs[min(i, n_valid - 1)] for i in range(R)]
@@ -294,8 +317,96 @@ class DeviceAVCCodec:
                                          for r, e in zip(sel, wp["l0"])])
                 wp_c = torch.as_tensor(np.array([e[2:6] for e in wp["l0"]],
                                                 np.int32)).to(self.device)
-            return self._encode_fn(False)(y, u, v, *stacks, qp, n_valid, force,
-                                          wp_c)
+            return self._frame_encoder("P")(y, u, v, *stacks, qp, n_valid,
+                                             force, wp_c)
+
+    def _pack(self, pic: _Picture) -> list:
+        """The slices of a picture: the one place a packer is chosen.  The
+        native CAVLC packer writes no sub_mb_type, data partitions or list
+        reordering, and a B-GOP sequence packs every picture in numpy (POC
+        LSB, MMCO); CABAC slices go to the Python packers."""
+        p, h, idr = self.p, pic.hdr, pic.ftype == "IDR"
+        rows = p.mb_h // self.n_slices
+        native = not (p.cabac or self.bframes or "reorder_l0" in h) and (
+            idr or not (self.sub8x8 or self.data_partitioning))
+        if pic.ftype == "B":
+            fn = PKC.pack_b_slice_cabac if p.cabac else PK.pack_b_slice
+        elif idr:
+            fn = PKC.pack_i_slice_cabac if p.cabac else PK.pack_i_slice
+        else:
+            fn = PKC.pack_p_slice_cabac if p.cabac else PK.pack_p_slice
+        rbsps = []
+        for s in range(self.n_slices):
+            q = pic.qp if pic.qps is None else pic.qps[s]
+            band = dict(row0=s * rows, n_rows=rows)
+            if native and idr:
+                rb = AN.pack_slice(pic.sym, p, SLICE_I, q, 0, True,
+                                   h["idr_pic_id"], 1, **band)
+            elif native:
+                rb = AN.pack_slice(pic.sym, p, SLICE_P, q, h["frame_num"],
+                                   False, 0, h["num_ref"], **band,
+                                   wp=h.get("wp"))
+            else:
+                if self.data_partitioning:
+                    band["dp_slice_id"] = s
+                rb = fn(pic.sym, p, q, **band, **h)
+            rbsps.append(rb)
+        return rbsps
+
+    @contextlib.contextmanager
+    def _host_timed(self, key: str, frame):
+        """A picture's host pack or deblock: its span (``avc.pack``,
+        ``avc.host_deblock``) and its ``host_ms[key]`` entry."""
+        with trace.span(_HOST_SPANS[key], frame=frame):
+            t0 = time.perf_counter()
+            yield
+            self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
+
+    def _host_stage(self, pic: _Picture, sym, rec, tctx) -> dict:
+        """The first half of a picture's host stage: the downloads of its
+        device outputs (span ``avc.wait``, ``avc.b.wait`` for a B picture)
+        and the host deblock (span ``avc.host_deblock``, one
+        ``host_ms["deblock"]`` entry).  Sets ``pic.sym`` and ``pic.rec8``;
+        returns the host deblocking context."""
+        p, frame = self.p, (pic.seq, pic.idx)
+        if pic.ftype == "B":
+            with trace.span("avc.b.wait", frame=frame):
+                pic.sym = host_symbols(sym, torch.int32)
+                ctx_np = {k: v.cpu().numpy().astype(np.int64)
+                          for k, v in tctx.items()}
+                rec_np = tuple(pl.cpu().numpy().astype(np.int64)
+                               for pl in rec)
+        else:
+            with trace.span("avc.wait", frame=frame):
+                pic.sym = host_symbols(sym)
+                ctx_np, rec_np = host_context(tctx, rec)
+        if p.deblock:
+            with self._host_timed("deblock", frame):
+                ctx = deblock_context(ctx_np, p.mb_h, p.mb_w, pic.qp,
+                                      p.chroma_qp_offset, pic.ftype == "IDR",
+                                      pic.qps, pic.pocs)
+                rec_np = AN.deblock_frame(*rec_np, ctx)
+        pic.rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
+        return ctx_np
+
+    def _finish(self, pic: _Picture, verbose: bool = False) -> tuple:
+        """The second half: the pack (span ``avc.pack``, one
+        ``host_ms["pack"]`` entry), then the picture's result with its bits
+        and PSNR, and ``trace.frame_done``.  Returns (result, slices)."""
+        with self._host_timed("pack", (pic.seq, pic.idx)):
+            rbsps = self._pack(pic)
+        mse = ((np.asarray(pic.yuv[0], np.float64) - pic.rec8[0]) ** 2).mean()
+        res = AVCFrameResult(
+            frame_type=pic.ftype,
+            bits=sum(len(x) for rb in rbsps
+                     for x in (rb if isinstance(rb, tuple) else (rb,))) * 8,
+            psnr_y=99.99 if mse == 0 else
+            float(10 * np.log10(255.0 ** 2 / mse)), recon=pic.rec8)
+        trace.frame_done(pic.seq, pic.idx, pic.ftype)
+        if verbose:
+            print(f"frame {pic.idx:3d} {pic.ftype:3s} "
+                  f"bits {res.bits:7d} PSNR-Y {res.psnr_y:6.2f}")
+        return res, rbsps
 
     def encode_sequence(self, frames, qp: int = None, verbose: bool = False,
                         force_intra=None, rate_control=None):
@@ -313,7 +424,9 @@ class DeviceAVCCodec:
         controller is not consulted there.  Each call is one ``trace``
         sequence (frames taken as the iterator yields them, done once
         packed); the host spans are ``avc.wait`` (the symbols' and the
-        reconstruction's downloads), ``avc.host_deblock`` and ``avc.pack``."""
+        reconstruction's downloads), ``avc.host_deblock`` and ``avc.pack``.
+        A frame is downloaded and deblocked at once, and packed once the
+        next frame's device work is queued."""
         p = self.p
         qp = p.qp if qp is None else qp
         if self.bframes > 0:
@@ -327,73 +440,22 @@ class DeviceAVCCodec:
                     "basic-unit RC is not mesh-sharded yet")
             rc.basic_units = self.n_slices     # BU = one row-band slice
         R = max(p.num_ref_frames, 1)
-        mb_h, mb_w = p.mb_h, p.mb_w
-        rows = mb_h // self.n_slices
+        rows = p.mb_h // self.n_slices
         slices, results, dpb = [], [], []
         dpb_means, dpb_recs = [], []   # per-entry (dc_y, dc_u, dc_v); rec8s
         frame_num = idr_pic_id = 0
         pending = None
         seq = trace.sequence()
 
-        def pack(pend):
-            """The slices of frame ``pend``."""
-            sym = pend["sym"]
-            fqps = pend["qps"]
-            if pend["idr"] and p.cabac:
-                rbsps = [PKC.pack_i_slice_cabac(
-                    sym, p, fqps[s], frame_num=0, idr=True,
-                    idr_pic_id=pend["idr_pic_id"], row0=s * rows, n_rows=rows)
-                    for s in range(self.n_slices)]
-            elif pend["idr"]:
-                rbsps = [AN.pack_slice(sym, p, SLICE_I, fqps[s], 0, True,
-                                       pend["idr_pic_id"], 1,
-                                       row0=s * rows, n_rows=rows)
-                         for s in range(self.n_slices)]
-            elif p.cabac:
-                rbsps = [PKC.pack_p_slice_cabac(
-                    sym, p, fqps[s], frame_num=pend["frame_num"],
-                    num_ref=pend["n_valid"], row0=s * rows, n_rows=rows)
-                    for s in range(self.n_slices)]
-            elif self.data_partitioning or self.sub8x8:
-                # partitions A/B/C; the C packer has no sub_mb_type
-                rbsps = [PK.pack_p_slice(
-                    sym, p, fqps[s], frame_num=pend["frame_num"],
-                    num_ref=pend["n_valid"], row0=s * rows, n_rows=rows,
-                    wp=pend["wp"],
-                    dp_slice_id=s if self.data_partitioning else None)
-                    for s in range(self.n_slices)]
-            else:
-                rbsps = [AN.pack_slice(sym, p, SLICE_P, fqps[s],
-                                       pend["frame_num"], False, 0,
-                                       pend["n_valid"], row0=s * rows,
-                                       n_rows=rows, wp=pend["wp"])
-                         for s in range(self.n_slices)]
-            return rbsps
-
-        def finalize(pend):
-            with trace.span("avc.pack", frame=(seq, pend["idx"])):
-                t0 = time.perf_counter()
-                rbsps = pack(pend)
-                self.host_ms["pack"].append((time.perf_counter() - t0) * 1e3)
-            slices.extend((pend["idr"], rb) for rb in rbsps)
-            res = AVCFrameResult(
-                frame_type=pend["ftype"],
-                bits=sum(len(x) for rb in rbsps
-                         for x in (rb if isinstance(rb, tuple) else (rb,))) * 8,
-                psnr_y=pend["psnr_y"], recon=pend["rec8"])
+        def finalize(pic):
+            """Pack ``pic``, and feed its bits to the rate controller."""
+            res, rbsps = self._finish(pic, verbose)
+            slices.extend((pic.ftype == "IDR", rb) for rb in rbsps)
             results.append(res)
-            trace.frame_done(seq, pend["idx"], pend["ftype"])
-            if verbose:
-                print(f"frame {pend['idx']:3d} {pend['ftype']:3s} "
-                      f"bits {res.bits:7d} PSNR-Y {res.psnr_y:6.2f}")
-            return res
-
-        def rc_update(pend):
-            """Pack ``pend`` and feed its bits to the controller."""
-            res = finalize(pend)
-            mse_y = 255.0 ** 2 / (10.0 ** (res.psnr_y / 10.0))
-            rc.update(res.bits, pend["qp"], float(np.sqrt(mse_y)),
-                      ftype="P" if pend["ftype"] == "P" else "I")
+            if rc is not None:
+                mse_y = 255.0 ** 2 / (10.0 ** (res.psnr_y / 10.0))
+                rc.update(res.bits, pic.qp, float(np.sqrt(mse_y)),
+                          ftype="P" if pic.ftype == "P" else "I")
 
         for idx, yuv in enumerate(frames):
             trace.frame_taken(seq, idx)
@@ -402,21 +464,25 @@ class DeviceAVCCodec:
             if rc is not None and idx > 0:
                 # rate control needs the previous frame's bits now
                 if pending is not None:
-                    rc_update(pending)
-                    if pending.get("bu_mads") is not None:
-                        rc.update_basic_units(pending["bu_mads"])
+                    finalize(pending)
+                    if bu and pending.ftype == "P":
+                        # the measured per-unit MAD (reconstruction error)
+                        # feeds this frame's per-unit target split
+                        d = np.abs(np.asarray(pending.yuv[0], np.int64)
+                                   - pending.rec8[0].astype(np.int64))
+                        rc.update_basic_units(
+                            [float(d[s * rows * 16:(s + 1) * rows * 16]
+                                   .mean()) for s in range(self.n_slices)])
                     pending = None
                 if bu and not idr:
                     qp_s = [int(v) for v in rc.basic_unit_qps(self.n_slices)]
                     qp = int(round(np.mean(qp_s)))
                 else:
                     qp = rc.frame_qp("I" if idr else "P")
-            meta = dict(idx=idx, idr=idr, qp=qp,
-                        qps=qp_s if qp_s is not None else [qp] * self.n_slices)
             wp = None
             if idr:
                 dpb, dpb_means, dpb_recs = [], [], []
-                meta.update(ftype="IDR", idr_pic_id=idr_pic_id)
+                hdr = dict(frame_num=0, idr=True, idr_pic_id=idr_pic_id)
                 idr_pic_id = (idr_pic_id + 1) & 0xFFFF
                 fim = None
             else:
@@ -426,56 +492,33 @@ class DeviceAVCCodec:
                     wp = (estimate_wp_lms(yuv, [dpb_recs[i] for i in pad])
                           if self.wp_method == "lms" else
                           estimate_wp(yuv, [dpb_means[i] for i in pad]))
-                meta.update(ftype="P", frame_num=frame_num, n_valid=n_valid,
-                            wp=wp)
+                hdr = dict(frame_num=frame_num, num_ref=n_valid)
+                if wp is not None:
+                    hdr["wp"] = wp
                 fim = force_intra(idx) if force_intra else None
                 if fim is not None:
                     fim = torch.as_tensor(np.asarray(fim, bool)).to(self.device)
-            sym, rec, tctx = self.encode_frame(
-                yuv, dpb, qp if qp_s is None else qp_s, fim, wp=wp)
+            pic = _Picture(seq, idx, "IDR" if idr else "P", yuv, qp, hdr,
+                           qps=qp_s)
+            out = self.encode_frame(yuv, dpb, qp if qp_s is None else qp_s,
+                                    fim, wp=wp)
             frame_num = 1 if idr else (frame_num + 1) % (1 << p.log2_max_frame_num)
 
             # pack the previous frame once this frame's work is queued
             if pending is not None:
                 finalize(pending)
-            with trace.span("avc.wait"):
-                sym_np = host_symbols(sym)
-                ctx_np, rec_np = host_context(tctx, rec)
-            if p.deblock:
-                with trace.span("avc.host_deblock"):
-                    t0 = time.perf_counter()
-                    ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
-                                          p.chroma_qp_offset, idr, qp_s)
-                    rec_np = AN.deblock_frame(*rec_np, ctx)
-                    self.host_ms["deblock"].append(
-                        (time.perf_counter() - t0) * 1e3)
-            rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
-            dpb.insert(0, self.prep(rec8))
+            self._host_stage(pic, *out)
+            dpb.insert(0, self.prep(pic.rec8))
             dpb = dpb[:R]
             if p.weighted_pred:
-                dpb_means.insert(0, tuple(float(pl.mean()) for pl in rec8))
+                dpb_means.insert(0, tuple(float(pl.mean()) for pl in pic.rec8))
                 dpb_means = dpb_means[:R]
                 if self.wp_method == "lms":
-                    dpb_recs.insert(0, rec8)
+                    dpb_recs.insert(0, pic.rec8)
                     dpb_recs = dpb_recs[:R]
-            mse = ((np.asarray(yuv[0], np.float64) - rec8[0]) ** 2).mean()
-            meta.update(sym=sym_np, rec8=rec8,
-                        psnr_y=99.99 if mse == 0 else
-                        float(10 * np.log10(255.0 ** 2 / mse)))
-            if bu and not idr:
-                # the measured per-unit MAD (reconstruction error) feeds the
-                # next frame's per-unit target split
-                d = np.abs(np.asarray(yuv[0], np.int64)
-                           - rec8[0].astype(np.int64))
-                meta["bu_mads"] = [float(d[s * rows * 16:(s + 1) * rows * 16]
-                                         .mean())
-                                   for s in range(self.n_slices)]
-            pending = meta
+            pending = pic
         if pending is not None:
-            if rc is not None:
-                rc_update(pending)
-            else:
-                finalize(pending)
+            finalize(pending)
         return results, assemble_stream(p, slices)
 
     def _encode_sequence_b(self, frames, qp: int, verbose: bool = False):
@@ -501,20 +544,16 @@ class DeviceAVCCodec:
         read from the source and done once packed; the spans are
         ``avc.b.frame`` (a B picture's device encode), ``avc.b.wait`` and
         ``avc.wait`` (a B picture's and an anchor's downloads),
-        ``avc.pack`` and ``avc.host_deblock``."""
+        ``avc.host_deblock`` and ``avc.pack``.  Each picture is downloaded,
+        deblocked and packed at once."""
         p = self.p
         G = self.bframes + 1
         mb_h, mb_w = p.mb_h, p.mb_w
-        rows = mb_h // self.n_slices
         max_fn = 1 << p.log2_max_frame_num
         max_poc = 1 << p.log2_max_poc_lsb
         slices, results = [], []
         fn_state = dict(frame_num=0)
-        packi = PKC.pack_i_slice_cabac if p.cabac else PK.pack_i_slice
-        packp = PKC.pack_p_slice_cabac if p.cabac else PK.pack_p_slice
-        packb = PKC.pack_b_slice_cabac if p.cabac else PK.pack_b_slice
         seq = trace.sequence()
-        spans = dict(pack="avc.pack", deblock="avc.host_deblock")
         source = iter(frames)
         held = {}                       # display index -> frame not yet coded
 
@@ -530,32 +569,12 @@ class DeviceAVCCodec:
             results.append(None)
             return True
 
-        def timed(key, disp, fn, *a, **kw):
-            with trace.span(spans[key], frame=(seq, disp)):
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                self.host_ms[key].append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        def pack_slices(fn, *a, **kw):
-            return [fn(*a, row0=s * rows, n_rows=rows, **kw)
-                    for s in range(self.n_slices)]
-
-        def finish(rec_np, disp, ftype, rbsps, ref_idc, idr=False):
-            slices.extend((idr, rb, ref_idc) for rb in rbsps)
-            rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
-            mse = ((np.asarray(held.pop(disp)[0], np.float64) - rec8[0])
-                   ** 2).mean()
-            results[disp] = AVCFrameResult(
-                frame_type=ftype, bits=sum(len(rb) for rb in rbsps) * 8,
-                psnr_y=99.99 if mse == 0 else
-                float(10 * np.log10(255.0 ** 2 / mse)), recon=rec8)
-            trace.frame_done(seq, disp, ftype)
-            if verbose:
-                print(f"frame {disp:3d} {ftype:3s} bits "
-                      f"{results[disp].bits:7d} PSNR-Y "
-                      f"{results[disp].psnr_y:6.2f}")
-            return rec8
+        def finish(pic, out, ref_idc):
+            """The picture's host stage; returns its host context."""
+            ctx_np = self._host_stage(pic, *out)
+            results[pic.idx], rbsps = self._finish(pic, verbose)
+            slices.extend((pic.ftype == "IDR", rb, ref_idc) for rb in rbsps)
+            return ctx_np
 
         def encode_b(disp, prep0, poc0, prep1, poc1, col_motion, fqp,
                      ref_pic=False):
@@ -563,33 +582,17 @@ class DeviceAVCCodec:
                 y, u, v = self.planes(held[disp])
                 col_mv, col_ref = (torch.as_tensor(np.asarray(a, np.int32))
                                    .to(self.device) for a in col_motion)
-                sym, rec, tctx = self._encode_fn_b()(
+                out = self._frame_encoder("B")(
                     y, u, v, *(x[None] for x in prep0),
                     *(x[None] for x in prep1), col_mv, col_ref, fqp, 1, 1)
-            with trace.span("avc.b.wait", frame=(seq, disp)):
-                sym_np = host_symbols(sym, torch.int32)
-                ctx_np = {k: v.cpu().numpy().astype(np.int64)
-                          for k, v in tctx.items()}
-                rec_np = tuple(pl.cpu().numpy().astype(np.int64)
-                               for pl in rec)
-            rbsps = timed("pack", disp, pack_slices, packb, sym_np, p, fqp,
-                          frame_num=fn_state["frame_num"] % max_fn,
-                          num_ref0=1, num_ref1=1,
-                          poc_lsb=(2 * disp) % max_poc, ref_pic=ref_pic)
-            if p.deblock:
-                ctx = DeblockContext(mb_w, mb_h, fqp, p.chroma_qp_offset)
-                ctx.mb_intra = ctx_np["mb_intra"].astype(bool)
-                ctx.nnz = ctx_np["nnz"]
-                ctx.mv = ctx_np["mv0"]
-                ctx.ref = np.where(ctx_np["ref0"] == 0, poc0, -1)
-                ctx.mv1 = ctx_np["mv1"]
-                ctx.ref1 = np.where(ctx_np["ref1"] == 0, poc1, -1)
-                rec_np = timed("deblock", disp, AN.deblock_frame, *rec_np,
-                               ctx)
-            rec8 = finish(rec_np, disp, "B", rbsps, 2 if ref_pic else 0)
+            pic = _Picture(seq, disp, "B", held.pop(disp), fqp, dict(
+                frame_num=fn_state["frame_num"] % max_fn, num_ref0=1,
+                num_ref1=1, poc_lsb=(2 * disp) % max_poc, ref_pic=ref_pic),
+                pocs=(poc0, poc1))
+            ctx_np = finish(pic, out, 2 if ref_pic else 0)
             if ref_pic:
                 fn_state["frame_num"] += 1
-            return rec8, (ctx_np["mv0"], ctx_np["ref0"])
+            return pic.rec8, (ctx_np["mv0"], ctx_np["ref0"])
 
         prev = None
         pending_bref_fn = None
@@ -599,17 +602,11 @@ class DeviceAVCCodec:
                 pass
             a = len(results) - 1
             idr = prev is None
-            sym, rec, tctx = self.encode_frame(
-                held[a], [] if idr else [prev["prep"]], qp, n_refs=1)
-            with trace.span("avc.wait", frame=(seq, a)):
-                sym_np = host_symbols(sym)
-                ctx_np, rec_np = host_context(tctx, rec)
+            out = self.encode_frame(held[a], [] if idr else [prev["prep"]],
+                                    qp, n_refs=1)
             if idr:
-                rbsps = timed("pack", a, pack_slices, packi, sym_np, p, qp,
-                              frame_num=0, idr=True)
+                hdr = dict(frame_num=0, idr=True, idr_pic_id=0)
                 fn_state["frame_num"] = 1
-                motion = (np.zeros((mb_h * 4, mb_w * 4, 2), np.int64),
-                          np.full((mb_h * 4, mb_w * 4), -1, np.int64))
                 anchor_fn = 0
             else:
                 frame_num = fn_state["frame_num"]
@@ -623,22 +620,19 @@ class DeviceAVCCodec:
                     adiff = (frame_num - prev["fn"] - 1) % max_fn
                     if adiff:
                         reorder = [(0, adiff)]
-                rbsps = timed("pack", a, pack_slices, packp, sym_np, p, qp,
-                              frame_num=frame_num % max_fn, num_ref=1,
-                              poc_lsb=(2 * a) % max_poc, mmco=mmco,
-                              reorder_l0=reorder)
+                hdr = dict(frame_num=frame_num % max_fn, num_ref=1,
+                           poc_lsb=(2 * a) % max_poc, mmco=mmco,
+                           reorder_l0=reorder)
                 pending_bref_fn = None
                 anchor_fn = frame_num
                 fn_state["frame_num"] += 1
-                motion = (ctx_np["mv"].astype(np.int64),
-                          ctx_np["ref"].astype(np.int64))
-            if p.deblock:
-                ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
-                                      p.chroma_qp_offset, idr)
-                rec_np = timed("deblock", a, AN.deblock_frame, *rec_np, ctx)
-            rec8 = finish(rec_np, a, "IDR" if idr else "P", rbsps,
-                          3 if idr else 2, idr)
-            cur = dict(prep=self.prep(rec8), motion=motion, poc=2 * a,
+            pic = _Picture(seq, a, "IDR" if idr else "P", held.pop(a), qp, hdr)
+            ctx_np = finish(pic, out, 3 if idr else 2)
+            motion = ((np.zeros((mb_h * 4, mb_w * 4, 2), np.int64),
+                       np.full((mb_h * 4, mb_w * 4), -1, np.int64)) if idr
+                      else (ctx_np["mv"].astype(np.int64),
+                            ctx_np["ref"].astype(np.int64)))
+            cur = dict(prep=self.prep(pic.rec8), motion=motion, poc=2 * a,
                        fn=anchor_fn, disp=a)
 
             if prev is not None:

@@ -1504,25 +1504,25 @@ class _Plan:
             self.ys[k].index_copy_(0, at, v[None])
 
 
-def _scan(key: tuple, inp: dict, st0: dict, make_step, mb_h: int, mb_w: int,
-          sb_h: int, dev):
+def _scan(key: tuple, inp: dict, lists: tuple, make_mb, mb_h: int,
+          mb_w: int, sb_h: int, dev):
     """Run the ``mb_w + 2*(sb_h - 1)`` wavefront steps of a decision scan.
 
-    ``inp``: the picture's tensors; ``st0``: the band state's (shape,
-    initial value) by name; ``make_step(inp, st)`` returns ``step(t)``, one
-    wavefront step over static copies of both (``t`` a 0-dim int64 tensor
-    on the device) that returns a dict of per-lane symbols.  Every picture
-    whose ``key`` and tensor shapes match launches the same kernels on the
-    same shapes, so the thread keeps one :class:`_Plan` per such key (the
-    ``_MAX_PLANS`` most recently used): a picture copies its tensors into
-    the plan and, on CUDA, replays the plan's graph of one step for every
-    step.  On a miss, step 0 runs eagerly (putting every constant table on
-    the card and sizing the outputs) and the step is captured; the CPU
-    runs every step eagerly.  Spans: ``avc.scan.load`` (copy-in and
-    reset), on a miss ``avc.scan.eager`` and ``avc.scan.capture`` (the
-    card waits while the host captures), and ``avc.scan.replay``.  Returns
-    (sym dict of [mb_h * mb_w, ...] tensors in raster order, band state):
-    fresh tensors, which the next picture's load does not touch."""
+    ``inp``: the picture's tensors; ``lists``: the name suffix of each
+    list's MV field in the band state (:func:`_band_state`);
+    ``make_mb(b, st, band)`` returns the scan's MB function over static
+    copies of both (:func:`_wavefront`).  Every picture whose ``key`` and
+    tensor shapes match launches the same kernels on the same shapes, so
+    the thread keeps one :class:`_Plan` per such key (the ``_MAX_PLANS``
+    most recently used): a picture copies its tensors into the plan and, on
+    CUDA, replays the plan's graph of one step for every step.  On a miss,
+    step 0 runs eagerly (putting every constant table on the card and
+    sizing the outputs) and the step is captured; the CPU runs every step
+    eagerly.  Spans: ``avc.scan.load`` (copy-in and reset), on a miss
+    ``avc.scan.eager`` and ``avc.scan.capture`` (the card waits while the
+    host captures), and ``avc.scan.replay``.  Returns (sym dict of [mb_h *
+    mb_w, ...] tensors in raster order, band state): fresh tensors, which
+    the next picture's load does not touch."""
     key = key + (str(dev),) + tuple((k, tuple(v.shape), v.dtype)
                                     for k, v in inp.items())
     T = mb_w + 2 * (sb_h - 1)
@@ -1530,7 +1530,8 @@ def _scan(key: tuple, inp: dict, st0: dict, make_step, mb_h: int, mb_w: int,
     plan = plans.pop(key, None)
     miss = plan is None
     if miss:
-        plan = _Plan(inp, st0, T, dev, make_step)
+        plan = _Plan(inp, _band_state(mb_h // sb_h, sb_h, mb_w * 16, lists),
+                     T, dev, _wavefront(make_mb, lists, mb_h, mb_w, sb_h, dev))
     t = plan.t
     with trace.span("avc.scan.load", dev):
         plan.load(inp)
@@ -1588,69 +1589,37 @@ def _band_state(S: int, sb_h: int, W: int, lists) -> dict:
     return st0
 
 
-def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
-           qp, n_valid: int, force_intra, *, sr: int, sb_h: int,
-           intra_only: bool, chroma_qp_offset: int = 0,
-           transform8: bool = False, sub8x8: bool = False,
-           scaling_default: bool = False, wp_c=None):
-    """The wavefront decision scan over every row-band slice at once.
-
-    An MB depends on its left, top and top-right neighbours only, so the
-    MBs with c == t - 2*r (band-local row r) are independent: step t
-    evaluates one MB per MB row of the frame and commits the row-disjoint
-    state updates; ``mb_w + 2*(sb_h - 1)`` steps.  Slices reset every
-    context, so each band keeps its own state.  ``qp``: the frame QP or one
-    QP per slice, as one per-lane tensor through every step
-    (:func:`_lane_cfg`); ``wp_c``: the chroma WP weights.  Returns (sym
-    dict of [nmb, ...] tensors in raster order, band state dict).  The
-    steps run in :func:`_scan`, from its plan for this shape."""
-    dev = org_y.device
-    H, W = org_y.shape
-    mb_h, mb_w = H // 16, W // 16
+def _wavefront(make_mb, lists, mb_h: int, mb_w: int, sb_h: int, dev):
+    """``make_step(b, st)`` of a decision scan's :class:`_Plan`, the half
+    of a step P and B pictures share.  An MB depends on its left, top and
+    top-right neighbours only, so the MBs with c == t - 2*r (band-local row
+    r) are independent: ``step(t)`` evaluates one per MB row with
+    ``make_mb(b, st, band)``'s MB function and commits the row-disjoint
+    updates to the band state, each list's MV field among them."""
     S = mb_h // sb_h
-    inp = dict(_org_blocks(org_y, org_u, org_v), ups=ref_ups, us=ref_us,
-               vs=ref_vs, mv_q=mv_q, sad_q=sad_q,
-               force=force_intra.reshape(-1).to(torch.bool),
-               **_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev))
-    if wp_c is not None:
-        inp["wp_c"] = wp_c
+    cells = [(f + x, f + x + "_cells") for x in lists for f in ("mv", "ref")]
+    cells += [("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")]
 
     def make_step(b, st):
-        qm = None
-        if scaling_default:
-            # the spec default matrices' weighted LevelScale / InvLevelScale
-            qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
-                      for m, t in tabs.items()}
-                  for k, tabs in QM.enc_tables_default().items()}
-        cfg = dict(qp=b["qp"], qpc=b["qpc"], lam=b["lam"],
-                   lam_me=b["lam_me"], n_valid=n_valid, mb_w=mb_w,
-                   intra_only=intra_only, transform8=transform8,
-                   sub8x8=sub8x8, qm=qm)
         lane = _ar(mb_h, dev)
         band = lane // sb_h
         lr = lane % sb_h
-        fr = _frame_view(b["org16"], b["orgc"], b["ups"], b["us"], b["vs"],
-                         band, sr, sb_h, b.get("wp_c"))
+        mb = make_mb(b, st, band)
 
         def step(t):
-            """One wavefront step; ``t`` a 0-dim int64 tensor on the
-            device."""
             cs = t - 2 * lr
             valid = (cs >= 0) & (cs < mb_w)
             mbx = torch.clamp(cs, 0, mb_w - 1)
             g = lane * mb_w + mbx
-            lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx,
-                      g=g)
-            upd, out = _mb_compute(st, lc, fr, b["mv_q"][g], b["sad_q"][g],
-                                   b["force"][g], cfg)
+            upd, out = mb(dict(band=band, mby=lr, mbx=mbx, by0=4 * lr,
+                               bx0=4 * mbx, g=g))
             _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"],
                  valid)
             _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1,
                  upd["recc"][:, 0], valid)
             _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1,
                  upd["recc"][:, 1], valid)
-            for key, val in (("mv", "mv_cells"), ("ref", "ref_cells"),
-                             ("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
+            for key, val in cells:
                 _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
             vm = valid[:, None, None]
             for key in ("ar_i", "ar_p"):
@@ -1661,22 +1630,71 @@ def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
 
         return step
 
+    return make_step
+
+
+def decide(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, mv_q, sad_q,
+           qp, n_valid: int, force_intra, *, sr: int, sb_h: int,
+           intra_only: bool, chroma_qp_offset: int = 0,
+           transform8: bool = False, sub8x8: bool = False,
+           scaling_default: bool = False, wp_c=None):
+    """The wavefront decision scan over every row-band slice at once: the
+    P and I pictures' scan entry, with :func:`_mb_compute` as the MB
+    function of :func:`_wavefront`'s ``mb_w + 2*(sb_h - 1)`` steps.
+    Slices reset every context, so each band keeps its own state.
+    ``qp``: the frame QP or one QP per slice, as one per-lane tensor
+    through every step (:func:`_lane_cfg`); ``wp_c``: the chroma WP
+    weights.  Returns (sym dict of [nmb, ...] tensors in raster order,
+    band state dict).  The steps run in :func:`_scan`, from its plan for
+    this shape."""
+    dev = org_y.device
+    mb_h, mb_w = org_y.shape[0] // 16, org_y.shape[1] // 16
+    inp = dict(_org_blocks(org_y, org_u, org_v), ups=ref_ups, us=ref_us,
+               vs=ref_vs, mv_q=mv_q, sad_q=sad_q,
+               force=force_intra.reshape(-1).to(torch.bool),
+               **_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev))
+    if wp_c is not None:
+        inp["wp_c"] = wp_c
+
+    def make_mb(b, st, band):
+        qm = None
+        if scaling_default:
+            # the spec default matrices' weighted LevelScale / InvLevelScale
+            qm = {k: {m: device_const(f"qm_{k}_{m}", t, dev)
+                      for m, t in tabs.items()}
+                  for k, tabs in QM.enc_tables_default().items()}
+        cfg = dict(qp=b["qp"], qpc=b["qpc"], lam=b["lam"],
+                   lam_me=b["lam_me"], n_valid=n_valid, mb_w=mb_w,
+                   intra_only=intra_only, transform8=transform8,
+                   sub8x8=sub8x8, qm=qm)
+        fr = _frame_view(b["org16"], b["orgc"], b["ups"], b["us"], b["vs"],
+                         band, sr, sb_h, b.get("wp_c"))
+        return lambda lc: _mb_compute(st, lc, fr, b["mv_q"][lc["g"]],
+                                      b["sad_q"][lc["g"]],
+                                      b["force"][lc["g"]], cfg)
+
     key = ("decide", sr, sb_h, n_valid, intra_only, transform8, sub8x8,
            scaling_default, chroma_qp_offset)
-    return _scan(key, inp, _band_state(S, sb_h, W, ("",)),
-                 make_step, mb_h, mb_w, sb_h, dev)
+    return _scan(key, inp, ("",), make_mb, mb_h, mb_w, sb_h, dev)
 
 
 def assemble(sym, st, mb_h: int, mb_w: int):
-    """Band state -> frame reconstruction and the deblocking context."""
+    """Band state -> frame reconstruction and the deblocking context: the
+    MV field of each list the band state holds (``mv``/``ref`` of a P
+    picture, ``mv0``/``ref0`` and ``mv1``/``ref1`` of a B picture), and
+    ``t8`` where the symbols carry it."""
     H, W = mb_h * 16, mb_w * 16
+    h4, w4 = mb_h * 4, mb_w * 4
     rec = (st["rec_y"][:, 1:, 1:W + 1].reshape(H, W),
            st["rec_u"][:, 1:, 1:].reshape(H // 2, W // 2),
            st["rec_v"][:, 1:, 1:].reshape(H // 2, W // 2))
-    ctx = dict(nnz=st["nnz_y"].reshape(mb_h * 4, mb_w * 4),
-               mv=st["mv"].reshape(mb_h * 4, mb_w * 4, 2),
-               ref=torch.clamp(st["ref"], min=-1).reshape(mb_h * 4, mb_w * 4),
-               mb_intra=sym["mb_intra"].reshape(mb_h, mb_w))
+    ctx = dict(nnz=st["nnz_y"].reshape(h4, w4))
+    for x in ("", "0", "1"):
+        if "mv" + x in st:
+            ctx["mv" + x] = st["mv" + x].reshape(h4, w4, 2)
+            ctx["ref" + x] = torch.clamp(st["ref" + x], min=-1).reshape(h4,
+                                                                        w4)
+    ctx["mb_intra"] = sym["mb_intra"].reshape(mb_h, mb_w)
     if "t8" in sym:
         ctx["t8"] = sym["t8"].reshape(mb_h, mb_w)
     return rec, ctx
@@ -1986,8 +2004,8 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
              col_mv, col_ref, qp, nv0: int, nv1: int, *, sr: int,
              sb_h: int, chroma_qp_offset: int = 0):
     """The B frame's wavefront decision scan over every row-band slice at
-    once, stepped like :func:`decide` (in :func:`_scan`, from its plan for
-    this shape).
+    once: :func:`decide`'s steps with :func:`_mb_compute_b` as the MB
+    function and one MV field per list.
 
     r0/r1: (ups, us, vs) reference stacks of lists 0 and 1; mv*_q [nmb, R,
     2] / sad*_q [nmb, R] the 16x16 search results of each list; col_mv
@@ -1997,8 +2015,7 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
     Returns (sym dict of [nmb, ...] tensors in raster order, band state
     dict)."""
     dev = org_y.device
-    H, W = org_y.shape
-    mb_h, mb_w = H // 16, W // 16
+    mb_h, mb_w = org_y.shape[0] // 16, org_y.shape[1] // 16
     S = mb_h // sb_h
     sh4, w4 = sb_h * 4, mb_w * 4
     inp = dict(_org_blocks(org_y, org_u, org_v),
@@ -2009,52 +2026,19 @@ def decide_b(org_y, org_u, org_v, r0, r1, mv0_q, sad0_q, mv1_q, sad1_q,
                col_ref=col_ref.to(torch.int32).reshape(S, sh4, w4),
                **_lane_cfg(qp, mb_h, sb_h, chroma_qp_offset, dev))
 
-    def make_step(b, st):
+    def make_mb(b, st, band):
         cfg = dict(qp=b["qp"], qpc=b["qpc"], lam=b["lam"],
                    lam_me=b["lam_me"], nv0=nv0, nv1=nv1, mb_w=mb_w, qm=None)
-        lane = _ar(mb_h, dev)
-        band = lane // sb_h
-        lr = lane % sb_h
         fr0, fr1 = (_frame_view(b["org16"], b["orgc"], b[f"ups{i}"],
                                 b[f"us{i}"], b[f"vs{i}"], band, sr, sb_h)
                     for i in (0, 1))
         col = dict(mv=b["col_mv"], ref=b["col_ref"])
-
-        def step(t):
-            """One wavefront step; ``t`` a 0-dim int64 tensor on the
-            device."""
-            cs = t - 2 * lr
-            valid = (cs >= 0) & (cs < mb_w)
-            mbx = torch.clamp(cs, 0, mb_w - 1)
-            g = lane * mb_w + mbx
-            lc = dict(band=band, mby=lr, mbx=mbx, by0=4 * lr, bx0=4 * mbx,
-                      g=g)
-            upd, out = _mb_compute_b(st, lc, fr0, fr1, b["mv0_q"][g],
-                                     b["sad0_q"][g], b["mv1_q"][g],
-                                     b["sad1_q"][g], col, cfg)
-            _put(st["rec_y"], band, 16 * lr + 1, 16 * mbx + 1, upd["rec16"],
-                 valid)
-            _put(st["rec_u"], band, 8 * lr + 1, 8 * mbx + 1,
-                 upd["recc"][:, 0], valid)
-            _put(st["rec_v"], band, 8 * lr + 1, 8 * mbx + 1,
-                 upd["recc"][:, 1], valid)
-            for key in ("mv0", "ref0", "mv1", "ref1"):
-                _put(st[key], band, 4 * lr, 4 * mbx, upd[key + "_cells"],
-                     valid)
-            for key, val in (("nnz_y", "nnz_cells"), ("i4m", "i4m_cells")):
-                _put(st[key], band, 4 * lr, 4 * mbx, upd[val], valid)
-            vm = valid[:, None, None]
-            for key in ("ar_i", "ar_p"):
-                add = torch.where(vm, upd[key + "_add"], 0).reshape(
-                    S, sb_h, 4, 4).sum(1, dtype=torch.int32)
-                st[key].copy_(torch.clamp(st[key] + add, 0, Q.AR_RANGE))
-            return out
-
-        return step
+        return lambda lc: _mb_compute_b(
+            st, lc, fr0, fr1, b["mv0_q"][lc["g"]], b["sad0_q"][lc["g"]],
+            b["mv1_q"][lc["g"]], b["sad1_q"][lc["g"]], col, cfg)
 
     key = ("decide_b", sr, sb_h, nv0, nv1, chroma_qp_offset)
-    return _scan(key, inp, _band_state(S, sb_h, W, ("0", "1")), make_step,
-                 mb_h, mb_w, sb_h, dev)
+    return _scan(key, inp, ("0", "1"), make_mb, mb_h, mb_w, sb_h, dev)
 
 
 def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
@@ -2075,7 +2059,7 @@ def encode_frame_b(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
         org_y, org_u, org_v, (r0_ups, r0_us, r0_vs), (r1_ups, r1_us, r1_vs),
         col_mv, col_ref, qp, nv0, nv1, sr=sr, n_slices=n_slices,
         chroma_qp_offset=chroma_qp_offset)
-    return (sym,) + assemble_b(sym, st, mb_h, mb_w)
+    return (sym,) + assemble(sym, st, mb_h, mb_w)
 
 
 def _encode_bands_b(org_y, org_u, org_v, r0, r1, col_mv, col_ref, qp,
@@ -2094,22 +2078,6 @@ def _encode_bands_b(org_y, org_u, org_v, r0, r1, col_mv, col_ref, qp,
                     sad1_q, col_mv, col_ref, qp, nv0, nv1, sr=sr,
                     sb_h=org_y.shape[0] // 16 // n_slices,
                     chroma_qp_offset=chroma_qp_offset)
-
-
-def assemble_b(sym, st, mb_h: int, mb_w: int):
-    """B band state -> frame reconstruction and the deblocking context."""
-    H, W = mb_h * 16, mb_w * 16
-    h4, w4 = mb_h * 4, mb_w * 4
-    rec = (st["rec_y"][:, 1:, 1:W + 1].reshape(H, W),
-           st["rec_u"][:, 1:, 1:].reshape(H // 2, W // 2),
-           st["rec_v"][:, 1:, 1:].reshape(H // 2, W // 2))
-    ctx = dict(nnz=st["nnz_y"].reshape(h4, w4),
-               mv0=st["mv0"].reshape(h4, w4, 2),
-               ref0=torch.clamp(st["ref0"], min=-1).reshape(h4, w4),
-               mv1=st["mv1"].reshape(h4, w4, 2),
-               ref1=torch.clamp(st["ref1"], min=-1).reshape(h4, w4),
-               mb_intra=sym["mb_intra"].reshape(mb_h, mb_w))
-    return rec, ctx
 
 
 # ===========================================================================
@@ -2164,6 +2132,38 @@ def _gather_bands(parts, home) -> dict:
     return {k: gather([p[k] for p in parts], home) for k in parts[0]}
 
 
+def _shard(mesh, axis: str, mb_h: int, mb_w: int, sr: int, n_slices: int,
+           encode_bands):
+    """The slot loop of the mesh-sharded frame encoders: ``encode(org_y,
+    org_u, org_v, refs, qp, rows, *args)`` runs ``encode_bands`` on each
+    slot's copies of its rows of the planes, of each list's (ups, us, vs)
+    stacks in ``refs`` and of each tensor in ``rows`` (indexed by MB row
+    first), and assembles the gathered bands on ``org_y``'s device."""
+    devs, nb = band_slots(mesh, axis, mb_h, n_slices)
+    sb_h = mb_h // n_slices
+
+    def encode(org_y, org_u, org_v, refs, qp, rows, *args):
+        home = org_y.device
+        syms, sts = [], []
+        for k, dev in enumerate(devs):
+            ry, rp, rc, rpc = _slot_rows(k * nb, nb, sb_h, sr)
+            m0, m1 = k * nb * sb_h, (k + 1) * nb * sb_h
+            sym, st = encode_bands(
+                _to(org_y[ry], dev), _to(org_u[rc], dev),
+                _to(org_v[rc], dev),
+                [(_to(ups[..., rp, :], dev), _to(us[:, rpc], dev),
+                  _to(vs[:, rpc], dev)) for ups, us, vs in refs],
+                _slot_qp(qp, k * nb, nb),
+                [_to(x[m0 * (len(x) // mb_h):m1 * (len(x) // mb_h)], dev)
+                 for x in rows], *args, n_slices=nb)
+            syms.append(sym)
+            sts.append(st)
+        sym = _gather_bands(syms, home)
+        return (sym,) + assemble(sym, _gather_bands(sts, home), mb_h, mb_w)
+
+    return encode
+
+
 def make_sharded_encode(mesh, axis: str, *, mb_h: int, mb_w: int, sr: int,
                         intra_only: bool, chroma_qp_offset: int = 0,
                         n_slices: int = 1, transform8: bool = False,
@@ -2175,32 +2175,20 @@ def make_sharded_encode(mesh, axis: str, *, mb_h: int, mb_w: int, sr: int,
     bands on its own device.  The returned callable has the signature and
     outputs of :func:`encode_frame`, on the device of ``org_y``, and gives
     the same symbols; explicit WP (``wp_c``) is not sharded and raises."""
-    devs, nb = band_slots(mesh, axis, mb_h, n_slices)
-    sb_h = mb_h // n_slices
-    opts = dict(sr=sr, n_slices=nb, intra_only=intra_only, sub8x8=sub8x8,
+    opts = dict(sr=sr, intra_only=intra_only, sub8x8=sub8x8,
                 chroma_qp_offset=chroma_qp_offset, transform8=transform8,
                 scaling_default=scaling_default)
+    split = _shard(mesh, axis, mb_h, mb_w, sr, n_slices,
+                   lambda y, u, v, refs, qp, rows, n_valid, **kw:
+                   _encode_bands(y, u, v, *refs[0], qp, n_valid, *rows,
+                                 **opts, **kw))
 
     def encode(org_y, org_u, org_v, ref_ups, ref_us, ref_vs, qp,
                n_valid: int, force_intra, wp_c=None):
         if wp_c is not None:
             raise NotImplementedError("WP is not mesh-sharded")
-        home = org_y.device
-        syms, sts = [], []
-        for k, dev in enumerate(devs):
-            ry, rp, rc, rpc = _slot_rows(k * nb, nb, sb_h, sr)
-            sym, st = _encode_bands(
-                _to(org_y[ry], dev), _to(org_u[rc], dev),
-                _to(org_v[rc], dev), _to(ref_ups[..., rp, :], dev),
-                _to(ref_us[:, rpc], dev), _to(ref_vs[:, rpc], dev),
-                _slot_qp(qp, k * nb, nb), n_valid,
-                _to(force_intra[k * nb * sb_h:(k + 1) * nb * sb_h], dev),
-                **opts)
-            syms.append(sym)
-            sts.append(st)
-        sym = _gather_bands(syms, home)
-        rec, ctx = assemble(sym, _gather_bands(sts, home), mb_h, mb_w)
-        return sym, rec, ctx
+        return split(org_y, org_u, org_v, [(ref_ups, ref_us, ref_vs)], qp,
+                     [force_intra], n_valid)
 
     return encode
 
@@ -2212,28 +2200,16 @@ def make_sharded_encode_b(mesh, axis: str, *, mb_h: int, mb_w: int,
     (``tpu_enc.make_sharded_encode_b``): row-band slices over the slots of
     ``axis``, each slot with its bands' views of both lists' references and
     its rows of the colocated motion."""
-    devs, nb = band_slots(mesh, axis, mb_h, n_slices)
-    sb_h = mb_h // n_slices
+    split = _shard(mesh, axis, mb_h, mb_w, sr, n_slices,
+                   lambda y, u, v, refs, qp, rows, nv0, nv1, **kw:
+                   _encode_bands_b(y, u, v, *refs, *rows, qp, nv0, nv1,
+                                   sr=sr, chroma_qp_offset=chroma_qp_offset,
+                                   **kw))
 
     def encode(org_y, org_u, org_v, r0_ups, r0_us, r0_vs, r1_ups, r1_us,
                r1_vs, col_mv, col_ref, qp, nv0: int, nv1: int):
-        home = org_y.device
-        syms, sts = [], []
-        for k, dev in enumerate(devs):
-            ry, rp, rc, rpc = _slot_rows(k * nb, nb, sb_h, sr)
-            c4 = slice(k * nb * sb_h * 4, (k + 1) * nb * sb_h * 4)
-            refs = [(_to(ups[..., rp, :], dev), _to(us[:, rpc], dev),
-                     _to(vs[:, rpc], dev))
-                    for ups, us, vs in ((r0_ups, r0_us, r0_vs),
-                                        (r1_ups, r1_us, r1_vs))]
-            sym, st = _encode_bands_b(
-                _to(org_y[ry], dev), _to(org_u[rc], dev),
-                _to(org_v[rc], dev), *refs, _to(col_mv[c4], dev),
-                _to(col_ref[c4], dev), _slot_qp(qp, k * nb, nb), nv0, nv1,
-                sr=sr, n_slices=nb, chroma_qp_offset=chroma_qp_offset)
-            syms.append(sym)
-            sts.append(st)
-        sym = _gather_bands(syms, home)
-        return (sym,) + assemble_b(sym, _gather_bands(sts, home), mb_h, mb_w)
+        return split(org_y, org_u, org_v, [(r0_ups, r0_us, r0_vs),
+                                           (r1_ups, r1_us, r1_vs)], qp,
+                     [col_mv, col_ref], nv0, nv1)
 
     return encode

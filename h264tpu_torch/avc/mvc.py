@@ -31,11 +31,9 @@ from ..entropy.bitio import BitWriter, BitReader
 from ..bitstream.nal import NALU, annexb_parse, annexb_write, NAL_PPS
 from .params import AVCParams, write_sps
 from .slice_dec import parse_sps
-from . import pack as PK
-from . import native as AN
-from .codec import AVCFrameResult
-from .device_codec import (DeviceAVCCodec, deblock_context, host_context,
-                           host_symbols)
+from .. import trace
+from .codec import AVCFrameResult  # noqa: F401  (the results' type)
+from .device_codec import DeviceAVCCodec, _Picture
 
 NAL_SUBSET_SPS = 15
 NAL_SLICE_EXT = 20
@@ -137,41 +135,29 @@ class MVCStereoCodec:
         qp = p.qp if qp is None else qp
         res0, base_stream = self.base.encode_sequence(frames0, qp=qp)
 
-        # view-1 pictures through the same device encoder, R = 2
-        mb_h, mb_w = p.mb_h, p.mb_w
-        rows = mb_h // self.n_slices
+        # view-1 pictures through the same device encoder and host stage,
+        # R = 2; their host spans carry a trace sequence of the view's own
         res1 = []
         v1_payloads = []
         prev1 = None
         frame_num = 0
+        seq = trace.sequence()
         for i, yuv in enumerate(frames1):
             iv = self.base.prep(res0[i].recon)      # inter-view reference
             refs = [iv] if prev1 is None else [prev1, iv]
-            n_valid = len(refs)
-            sym, rec, tctx = self.base.encode_frame(yuv, refs, qp, n_refs=2)
-            symh = host_symbols(sym)
-            ctx_np, rec_np = host_context(tctx, rec)
+            out = self.base.encode_frame(yuv, refs, qp, n_refs=2)
             # once the view's temporal window holds 2 pictures, the
             # appended inter-view ref falls outside the active list:
             # emit the MVC ref-list modification (short-term prev at 0,
             # inter-view at 1; idc 5 = inter-view, H.7.3.3.1.1)
             reorder = [(0, 0), (5, 0)] if i >= 2 else None
-            rbsps = [PK.pack_p_slice(symh, p, qp, frame_num=frame_num,
-                                     num_ref=n_valid, row0=s0 * rows,
-                                     n_rows=rows, reorder_l0=reorder)
-                     for s0 in range(self.n_slices)]
-            if p.deblock:
-                ctx = deblock_context(ctx_np, mb_h, mb_w, qp,
-                                      p.chroma_qp_offset, idr=False)
-                rec_np = AN.deblock_frame(*rec_np, ctx)
-            rec8 = tuple(np.asarray(pl, np.uint8) for pl in rec_np)
-            mse = ((np.asarray(yuv[0], np.float64) - rec8[0]) ** 2).mean()
-            res1.append(AVCFrameResult(
-                frame_type="P", bits=sum(len(rb) for rb in rbsps) * 8,
-                psnr_y=99.99 if mse == 0 else
-                float(10 * np.log10(255.0 ** 2 / mse)), recon=rec8))
+            pic = _Picture(seq, i, "P", yuv, qp, dict(
+                frame_num=frame_num, num_ref=len(refs), reorder_l0=reorder))
+            self.base._host_stage(pic, *out)
+            res, rbsps = self.base._finish(pic)
+            res1.append(res)
             v1_payloads.append((i == 0, rbsps))
-            prev1 = self.base.prep(rec8)
+            prev1 = self.base.prep(pic.rec8)
             frame_num = (frame_num + 1) % (1 << p.log2_max_frame_num)
 
         # interleave into one Annex-B stream: subset SPS after the base

@@ -178,8 +178,8 @@ def test_codec_reused_across_clips_equals_fresh_codecs():
 
 
 def test_scan_outputs_share_no_storage_with_a_plan():
-    """What ``decide``/``decide_b`` return, and ``assemble``'s views of it,
-    own their storage: no tensor shares one with a plan's buffers, and a
+    """What ``decide``/``decide_b`` return, and ``assemble``'s views of
+    both, own their storage: no tensor shares one with a plan's buffers, and a
     later scan through the same plan leaves them as they were."""
     H, W, sr, qp = 48, 64, 4, 30
     frames = smooth_frames(3, H, W, seed=3)
@@ -201,7 +201,7 @@ def test_scan_outputs_share_no_storage_with_a_plan():
                                   sad16, col_mv, col_ref, qp, 1, 1, sr=sr,
                                   sb_h=H // 16)
         rec, ctx = DE.assemble(sym, st, H // 16, W // 16)
-        rec_b, ctx_b = DE.assemble_b(sym_b, st_b, H // 16, W // 16)
+        rec_b, ctx_b = DE.assemble(sym_b, st_b, H // 16, W // 16)
         return [sym, st, ctx, sym_b, st_b, ctx_b, dict(enumerate(rec)),
                 dict(enumerate(rec_b))]
 

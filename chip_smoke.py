@@ -21,7 +21,9 @@ Phases, in order; any failure exits non-zero before the result line:
    wrapper's call time (CUDA events around back-to-back calls); then the
    loop filter's kernel pair (``csrc/deblock.cu``) against its plain version
    at CIF luma and chroma, with the device time of a call's two launches,
-   the call's time and the plain version's;
+   the call's time and the plain version's; then the decision scan's
+   intra 4x4 kernel (``csrc/intra4.cu``) against its plain version at one
+   CIF and one 1080p step;
 3. the fractal main path at full size: ``FractalCodec.encode_sequence`` of
    1 I + 7 P CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC)
    with the kernel launch counters reset just before and read just after
@@ -37,7 +39,12 @@ Phases, in order; any failure exits non-zero before the result line:
    ``bench.py`` AVC settings (QP 28, SR 8, one reference): 1 IDR + 4 P CIF
    frames in 9 slices, decoded bit-exactly by the port's ``AVCDecoder``, with
    per-frame bits and PSNR, steady-state P fps, kbps at 30 fps, device ms per
-   stage, host ms of the packer and the deblock, and with ``--trace`` the
+   stage (every stage breakdown here and below checks that a plan miss
+   launches the intra 4x4 kernel twice from the host and a hit not at all),
+   the kernel's device launches in one P frame (torch.profiler: one a
+   wavefront step; so too at 1080p, in phase 6's one-slice CIF P frame and
+   in phase 7's B frame), host ms of the packer and the deblock, and with
+   ``--trace`` the
    kernel launches and summed kernel time of one P frame (torch.profiler,
    off by default: the High CIF trace alone takes ~190 s); a QCIF stream in 3
    slices encoded on the card and on the CPU, which must be equal byte for
@@ -441,6 +448,80 @@ def phase_deblock_kernel(seed: int):
     return rows
 
 
+# name, lanes L, mb_w: the decision scan's steps at CIF (one slice) and
+# 1080p (17 slices)
+INTRA4_CASES = (("cif", 18, 22), ("1080p", 68, 120))
+
+
+def intra4_inputs(rng, L: int, mb_w: int):
+    """``device_enc._eval_i4``'s arguments for one scan step on the card:
+    a smooth texture with noise around and inside each lane's MB, the
+    lanes' MBs at the wavefront's columns, random neighbour counts and
+    modes, QP 28 and the intra rounding offsets."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE, quant_dev as Q
+    base = rng.integers(40, 216, (L, 1, 1))
+    patch = np.clip(base + rng.integers(-12, 13, (L, 17, 25)), 0, 255)
+    org = np.clip(base + rng.integers(-16, 17, (L, 16, 16)), 0, 255)
+    lane = np.arange(L)
+    qp = torch.full((L,), AVC_QP, dtype=torch.int32)
+
+    def card(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).cuda()
+
+    lc = dict(mby=card(lane % 4, torch.int64),
+              mbx=card(np.clip(mb_w // 2 - 2 * (lane % 4), 0, mb_w - 1),
+                       torch.int64))
+    nbr = dict(l_nnz=card(rng.integers(0, 17, (L, 4))),
+               t_nnz=card(rng.integers(0, 17, (L, 4))),
+               l_i4m=card(rng.integers(-1, 9, (L, 4))),
+               t_i4m=card(rng.integers(-1, 9, (L, 4))))
+    return (card(patch), card(org), lc, nbr, qp.cuda(),
+            DE.lane_lambdas(qp)[0].cuda(), mb_w,
+            card(np.full((L, 4, 4), Q.OFFSET_INTRA)))
+
+
+def phase_intra4_kernel(seed: int):
+    """The decision scan's intra 4x4 kernel (``csrc/intra4.cu``) against its
+    plain version (every output exactly equal) at one CIF and one 1080p
+    scan step; device time of a launch (torch.profiler), the wrapper's call
+    time (CUDA events over back-to-back calls), the plain version's, and
+    the bound: the inputs read and the outputs written once at the HBM
+    rate."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE
+    rng = np.random.default_rng(seed + 3)
+    rows = {}
+    for name, L, mb_w in INTRA4_CASES:
+        args = intra4_inputs(rng, L, mb_w)
+
+        def call():
+            return DE._eval_i4(*args)
+
+        def plain():
+            return DE._eval_i4_reference(*args)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        check(not bad, f"intra4 != plain version at {name}: {bad}")
+        ms = kernel_device_ms(call, 20, "intra4_kernel")
+        call_ms = cuda_ms(call, 200)
+        plain_ms = cuda_ms(plain, 3, 1)
+        tensors = [t for a in args for t in (
+            a.values() if isinstance(a, dict) else [a])
+            if isinstance(t, torch.Tensor)] + list(got.values())
+        nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+            + 2 * 6 * 16 * 4                        # the two [6, 4, 4] tables
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, wrapper_call_ms=call_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes", max_abs_err=0)
+        print(f"[kernel intra4 {name}] L={L} mb_w={mb_w} qp={AVC_QP}: exact; "
+              f"device {ms:.4f} ms (bound {bound_ms:.6f} ms by bytes); call "
+              f"{call_ms:.4f} ms (CUDA events over 200 calls); plain "
+              f"{plain_ms:.3f} ms", flush=True)
+    return rows
+
+
 def phase_kernels(seed: int):
     """cross_cells against its plain version (exact int32 equality) at the
     main path's shapes and the search's other options; device time of one
@@ -831,7 +912,55 @@ def mb_lambda_me(codec, qp):
     return DE.lane_lambdas(qp_l)[1].repeat_interleave(p.mb_w)
 
 
-def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
+def scan_miss_and_hit(run, label: str):
+    """``traced(run)`` on a plan miss (the thread's plans dropped first),
+    then on a hit, checking the intra4 wrapper's host counter: the miss
+    launches the kernel twice (the eager step 0 and the capture), the hit
+    not at all (its steps replay the graph).  Returns both results."""
+    from h264tpu_torch.avc import device_enc as DE
+    DE.drop_plans()
+    DE.intra4.launches = 0
+    out_miss = traced(run)
+    miss = DE.intra4.launches
+    out_hit = traced(run)
+    hit = DE.intra4.launches - miss
+    check(miss == 2 and hit == 0,
+          f"[{label}] the host launched intra4 {miss} times on a plan miss "
+          f"(eager step and capture: 2) and {hit} on a hit (replays: 0)")
+    return out_miss, out_hit
+
+
+def intra4_device_launches(run, steps: int, label: str) -> int:
+    """The intra4 kernel's launches in one picture's encode ``run`` on a
+    plan hit, from the device events whose names hold ``intra4_kernel``
+    that torch.profiler records: one a wavefront step.  The profiler's raw
+    events are counted, unparsed: building its event list takes minutes
+    for the ~10^5-10^6 kernels of a picture.  A window with another count
+    than ``steps`` is traced again, up to PROFILER_WINDOWS windows; fails
+    unless one saw ``steps``."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILER_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda and "intra4_kernel" in e.name())
+        if n == steps:
+            print(f"[{label}] intra4 launches of one picture on a plan hit: "
+                  f"{n} (torch.profiler), one a wavefront step of {steps}",
+                  flush=True)
+            return n
+        print(f"[profiler] window {attempt} of {PROFILER_WINDOWS} saw {n} "
+              f"intra4_kernel launches in one {label} picture, not {steps}",
+              flush=True)
+    fail(f"[{label}] the profiler saw no window of {steps} intra4_kernel "
+         f"launches in {PROFILER_WINDOWS} tries")
+
+
+def avc_stages(codec, frame, ref_rec, qp=AVC_QP, count: str = None):
     """Device ms of each stage of one P frame (CUDA events around the calls
     ``device_enc.encode_frame`` makes) at ``qp`` (the frame QP or one per
     slice), the second of two runs.  The decision scan's stages come from
@@ -841,7 +970,10 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
     replays the plan's graph for every step.  ``host_enqueue`` is
     the host clock from the first call to the return of the last, before
     the sync: when it nears the device span, the host has no time left to
-    pack a frame while the card works."""
+    pack a frame while the card works.  The intra4 kernel's host launches
+    are checked over both runs (:func:`scan_miss_and_hit`); with ``count``
+    (a label) its device launches on a third run are added as
+    ``intra4_launches``."""
     import torch
     from h264tpu_torch.avc import device_enc as DE
     p, sr = codec.p, codec.sr
@@ -876,17 +1008,20 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP):
         ev[4].synchronize()
         return ev, host_ms
 
-    DE.drop_plans()
-    (ev_miss, _), recs_miss = traced(run)
-    (ev, host_ms), recs = traced(run)
-    return {"stage_a_search": ev[0].elapsed_time(ev[1]),
-            "stage_b_subpel": ev[1].elapsed_time(ev[2]),
-            **scan_stages(recs, ev[2].elapsed_time(ev[3])),
-            **scan_stages(recs_miss, ev_miss[2].elapsed_time(ev_miss[3]),
-                          "miss_"),
-            "prep_ref": ev[3].elapsed_time(ev[4]),
-            "device_total": ev[0].elapsed_time(ev[4]),
-            "host_enqueue": host_ms}
+    ((ev_miss, _), recs_miss), ((ev, host_ms), recs) = scan_miss_and_hit(
+        run, count or "avc P stages")
+    got = {"stage_a_search": ev[0].elapsed_time(ev[1]),
+           "stage_b_subpel": ev[1].elapsed_time(ev[2]),
+           **scan_stages(recs, ev[2].elapsed_time(ev[3])),
+           **scan_stages(recs_miss, ev_miss[2].elapsed_time(ev_miss[3]),
+                         "miss_"),
+           "prep_ref": ev[3].elapsed_time(ev[4]),
+           "device_total": ev[0].elapsed_time(ev[4]),
+           "host_enqueue": host_ms}
+    if count:
+        got["intra4_launches"] = intra4_device_launches(
+            run, p.mb_w + 2 * (p.mb_h // codec.n_slices - 1), count)
+    return got
 
 
 def scan_stages(records, decide_ms: float, prefix: str = "") -> dict:
@@ -973,7 +1108,8 @@ def phase_avc_cif(seed: int, profile_dir=None, trace: bool = False):
     print("[avc cif] host ms per P frame: pack "
           f"{np.mean(codec.host_ms['pack'][1:]):.1f}, deblock "
           f"{np.mean(codec.host_ms['deblock'][1:]):.1f}", flush=True)
-    stages = avc_stages(codec, frames[1], results[0].recon)
+    stages = avc_stages(codec, frames[1], results[0].recon, count="avc cif P")
+    del stages["intra4_launches"]          # checked and printed by the count
     print("[avc cif] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     if not trace:
@@ -1021,9 +1157,12 @@ def phase_avc_1080p(seed: int):
           f"{len(stream)} bytes, peak device memory {peak:.3f} GiB; host ms: "
           f"pack {codec.host_ms['pack']}, deblock {codec.host_ms['deblock']}",
           flush=True)
-    stages = avc_stages(codec, frames[1], results[0].recon)
+    stages = avc_stages(codec, frames[1], results[0].recon,
+                        count="avc 1080p P")
+    n_i4 = stages.pop("intra4_launches")
     print("[avc 1080p] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
+    return n_i4
 
 
 def mb_counts(sym):
@@ -1091,12 +1230,14 @@ def phase_avc_high_cif(seed: int, profile_dir=None, trace: bool = False):
           f"{np.mean(codec.host_ms['deblock'][1:]):.1f}; IDR: native pack "
           f"{codec.host_ms['pack'][0]:.1f}, native deblock "
           f"{codec.host_ms['deblock'][0]:.1f}", flush=True)
-    stages = avc_stages(codec, frames[1], results[0].recon)
+    stages = avc_stages(codec, frames[1], results[0].recon,
+                        count="avc high cif P")
+    n_i4 = stages.pop("intra4_launches")
     print("[avc high cif] one P frame by stage, ms between CUDA events: "
           + json.dumps({k: round(v, 3) for k, v in stages.items()}),
           flush=True)
     if not trace:
-        return rec
+        return rec, n_i4
     t0 = time.perf_counter()
     launches, dev_ms = avc_profile(codec, frames[1], results[0].recon,
                                    profile_dir)
@@ -1106,7 +1247,7 @@ def phase_avc_high_cif(seed: int, profile_dir=None, trace: bool = False):
     print(f"[avc high cif] one P frame: {launches} kernel launches, summed "
           f"kernel time {busy} (torch.profiler, "
           f"{time.perf_counter() - t0:.1f} s to trace)", flush=True)
-    return rec
+    return rec, n_i4
 
 
 # the two High QCIF configurations: (i) every option of the slice; (ii) the
@@ -1184,10 +1325,11 @@ def b_codec(H: int, W: int, n_slices: int, device: str, fields=HIERB,
                           hierarchical=hierarchical, device=device)
 
 
-def avc_b_stages(codec, frame, rec0, rec1, qp: int):
+def avc_b_stages(codec, frame, rec0, rec1, qp: int, count: str = None):
     """Device ms of each stage of one B frame (CUDA events around the calls
     ``device_enc.encode_frame_b`` makes), the second of two runs, with the
-    decision scan split as in :func:`avc_stages`.  The colocated motion is
+    decision scan split, and the intra4 kernel's launches checked and with
+    ``count`` counted, as in :func:`avc_stages`.  The colocated motion is
     all intra (an IDR's), which changes no stage's work."""
     import torch
     from h264tpu_torch.avc import device_enc as DE
@@ -1228,19 +1370,22 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int):
         ev[6].synchronize()
         return ev, host_ms
 
-    DE.drop_plans()
-    (ev_miss, _), recs_miss = traced(run)
-    (ev, host_ms), recs = traced(run)
-    return {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
-            "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
-            "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
-            "stage_b_subpel_l1": ev[3].elapsed_time(ev[4]),
-            **scan_stages(recs, ev[4].elapsed_time(ev[5])),
-            **scan_stages(recs_miss, ev_miss[4].elapsed_time(ev_miss[5]),
-                          "miss_"),
-            "prep_ref": ev[5].elapsed_time(ev[6]),
-            "device_total": ev[0].elapsed_time(ev[6]),
-            "host_enqueue": host_ms}
+    ((ev_miss, _), recs_miss), ((ev, host_ms), recs) = scan_miss_and_hit(
+        run, count or "avc B stages")
+    got = {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
+           "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
+           "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
+           "stage_b_subpel_l1": ev[3].elapsed_time(ev[4]),
+           **scan_stages(recs, ev[4].elapsed_time(ev[5])),
+           **scan_stages(recs_miss, ev_miss[4].elapsed_time(ev_miss[5]),
+                         "miss_"),
+           "prep_ref": ev[5].elapsed_time(ev[6]),
+           "device_total": ev[0].elapsed_time(ev[6]),
+           "host_enqueue": host_ms}
+    if count:
+        got["intra4_launches"] = intra4_device_launches(
+            run, mb_w + 2 * (rows - 1), count)
+    return got
 
 
 def b_profile(codec, frame, rec0, rec1, qp: int):
@@ -1327,7 +1472,9 @@ def phase_avc_hierb_cif(seed: int, trace: bool = False):
           f"CABAC pack of the IDR and P anchors "
           f"{[round(x, 1) for x in pack_a]} ms", flush=True)
     stages = avc_b_stages(codec, frames[2], results[0].recon,
-                          results[4].recon, AVC_QP + 1)
+                          results[4].recon, AVC_QP + 1,
+                          count="avc hierb cif B")
+    del stages["intra4_launches"]          # checked and printed by the count
     print("[avc hierb cif] one B frame (the reference B, QP 29) by stage, ms "
           "between CUDA events: " + json.dumps(
               {k: round(v, 3) for k, v in stages.items()}), flush=True)
@@ -2695,6 +2842,7 @@ def main(argv=None) -> int:
 
     timed("device and build", phase_device_and_build)
     krows, drows = timed("kernels", phase_kernels, args.seed)
+    irows = timed("intra4 kernel", phase_intra4_kernel, args.seed)
     launches, cif_stream, cif_p_ms = timed("fractal cif", phase_main_path,
                                            args.seed, args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
@@ -2702,9 +2850,9 @@ def main(argv=None) -> int:
     rec_cif, avc_cif_results, avc_cif_stream = timed(
         "avc cif", phase_avc_cif, args.seed, args.profile_dir, args.trace)
     timed("avc qcif card vs cpu", phase_avc_card_vs_cpu, args.seed)
-    timed("avc 1080p", phase_avc_1080p, args.seed)
-    rec_high = timed("avc high cif", phase_avc_high_cif, args.seed,
-                     args.profile_dir, args.trace)
+    i4_1080p = timed("avc 1080p", phase_avc_1080p, args.seed)
+    rec_high, i4_high = timed("avc high cif", phase_avc_high_cif,
+                              args.seed, args.profile_dir, args.trace)
     rec_qcif = timed("avc high qcif card vs cpu", phase_avc_high_card_vs_cpu,
                      args.seed)
     timed("avc high 1080p", phase_avc_high_1080p, args.seed)
@@ -2760,6 +2908,10 @@ def main(argv=None) -> int:
              ("1080p_luma_tiled2", "1080p_luma_tiled2",
               launches_sharded["1080p_tiled2"]),
              ("cif_luma_cfgfile", "cif_luma", launches_cfg))
+    # the intra4 kernel's device launches in one P picture as the main
+    # path's scans ran it: CIF in one slice (the benchmark cells' layout),
+    # 1080p in 17; the 9-slice CIF P and B pictures' in their phases' lines
+    i4_launches = {"cif": i4_high, "1080p": i4_1080p}
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",
@@ -2777,7 +2929,14 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "wrapper_call_ms": row["wrapper_call_ms"]}
-            for case, row in drows.items()]}
+            for case, row in drows.items()] + [{
+            "name": "intra4", "case": case, "route": "cuda",
+            "source": "h264tpu_torch/csrc/intra4.cu", "replaces": None,
+            "launches": i4_launches[case], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "wrapper_call_ms": row["wrapper_call_ms"]}
+            for case, row in irows.items()]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,10 +37,19 @@ def device_const(name: str, value: np.ndarray, device) -> torch.Tensor:
 
     Uploading from pageable host memory inside the encode loop would make the
     host wait for the stream; cached tables keep dispatch asynchronous.
+    Raises ValueError when ``name`` is cached with another dtype or shape
+    than ``value``'s: two tables under one name would otherwise hand one
+    caller the other's.
     """
     key = (name, str(device))
-    t = _CONSTS.get(key)
-    if t is None:
+    value = np.asarray(value)
+    hit = _CONSTS.get(key)
+    if hit is None:
         t = torch.as_tensor(np.ascontiguousarray(value)).to(device)
-        _CONSTS[key] = t
+        _CONSTS[key] = t, value.dtype, value.shape
+        return t
+    t, dtype, shape = hit
+    if value.dtype != dtype or value.shape != shape:
+        raise ValueError(f"device_const: {name!r} is cached as {dtype} "
+                         f"{shape}, not {value.dtype} {value.shape}")
     return t

@@ -49,7 +49,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .. import device_const, trace
+from .. import device_const, kernels, trace
 from ..parallel.mesh import gather
 from ..ops.me import sixtap_phases, edge_pad
 from ..ops.transform import COEFF_COST
@@ -190,7 +190,9 @@ def _c(name: str, value, device) -> torch.Tensor:
 
 
 def _ar(n: int, device) -> torch.Tensor:
-    return device_const(f"arange{n}", np.arange(n, dtype=np.int64), device)
+    """arange(n) as int64 (``ops/`` caches int32 ranges as "arange<n>")."""
+    return device_const(f"arange{n}_i64", np.arange(n, dtype=np.int64),
+                        device)
 
 
 # ===========================================================================
@@ -623,7 +625,78 @@ def _eval_i16(patch, org16, lc, nbr, qp, lam, ar_off, qm=None):
 def _eval_i4(patch, org16, lc, nbr, qp, lam, mb_w: int, ar_off,
              qm=None):
     """Intra 4x4 RD: the 16 blocks in coding order, each seeing the
-    reconstruction of the ones before it."""
+    reconstruction of the ones before it.  On a CUDA tensor this launches
+    the hand-written kernel (:func:`intra4`) or raises; on a CPU tensor it
+    runs :func:`_eval_i4_reference`."""
+    if patch.device.type == "cuda":
+        return intra4(patch, org16, lc, nbr, qp, lam, mb_w, ar_off, qm)
+    if patch.device.type != "cpu":
+        raise ValueError(f"_eval_i4: unsupported device {patch.device}")
+    return _eval_i4_reference(patch, org16, lc, nbr, qp, lam, mb_w, ar_off,
+                              qm)
+
+
+def _operand(name: str, t, shape: tuple, dtype, dev) -> torch.Tensor:
+    """``t`` if it is a contiguous tensor of ``shape`` and ``dtype`` on
+    ``dev``; raises ValueError otherwise."""
+    if not isinstance(t, torch.Tensor) or t.device != dev \
+            or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+               if isinstance(t, torch.Tensor) else type(t).__name__)
+        raise ValueError(f"intra4: {name} must be a contiguous {dtype} "
+                         f"tensor {shape} on {dev}, not {got}")
+    return t
+
+
+def intra4(patch, org16, lc, nbr, qp, lam, mb_w: int, ar_off, qm=None):
+    """:func:`_eval_i4` on CUDA tensors in one launch of ``csrc/intra4.cu``
+    (one thread block per lane), on the current stream.  ``qp`` [L] int32,
+    ``lam`` [L] float64 and ``ar_off`` [L, 4, 4] int32 are per lane; the
+    scaling tables are ``qm``'s weighted ones, or the flat ones with
+    InvLevelScale = dequant_coef * 16, for which the weighted dequantiser
+    ``((l * ils) << per + 8) >> 4`` equals the flat ``(l * V) << per``.
+    Raises ValueError on what the kernel does not take.
+    ``intra4.launches`` counts launches."""
+    dev = patch.device
+    L = patch.shape[0] if patch.dim() == 3 else -1
+    i32 = torch.int32
+    mf, ils = _tabs(qm, "i4")
+    if mf is None:
+        mf = Q._quant_coef(dev)
+        ils = device_const("dequant_coef_x16", Q.DEQUANT_COEF * 16, dev)
+    ins = [_operand("patch", patch, (L, 17, 25), i32, dev),
+           _operand("org16", org16, (L, 16, 16), i32, dev),
+           _operand("mby", lc["mby"], (L,), torch.int64, dev),
+           _operand("mbx", lc["mbx"], (L,), torch.int64, dev)]
+    ins += [_operand(k, nbr[k], (L, 4), i32, dev)
+            for k in ("l_nnz", "t_nnz", "l_i4m", "t_i4m")]
+    ins += [_operand("qp", qp, (L,), i32, dev),
+            _operand("lam", lam, (L,), torch.float64, dev),
+            _operand("ar_off", ar_off, (L, 4, 4), i32, dev),
+            _operand("mf", mf, (6, 4, 4), i32, dev),
+            _operand("ils", ils, (6, 4, 4), i32, dev)]
+    if mb_w < 1:
+        raise ValueError(f"intra4: mb_w must be positive, not {mb_w}")
+    out = dict(modes=(L, 16), zzs=(L, 16, 16), flags=(L, 16, 2),
+               rec=(L, 16, 16), nnz_cells=(L, 4, 4), modes_cells=(L, 4, 4),
+               fadj=(L, 4, 4))
+    out = {k: torch.empty(v, dtype=i32, device=dev) for k, v in out.items()}
+    out["cost"] = torch.empty((L,), dtype=torch.float32, device=dev)
+    kernels.launch_intra4(ins, list(out.values()), mb_w)
+    with _LAUNCH_LOCK:                 # GOP worker threads launch too
+        intra4.launches += 1
+    return out
+
+
+intra4.launches = 0
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _eval_i4_reference(patch, org16, lc, nbr, qp, lam, mb_w: int, ar_off,
+                       qm=None):
+    """Plain PyTorch version of :func:`_eval_i4`: the loop over the 16
+    blocks, each evaluating its 9 modes as batched tensor ops."""
     dev = patch.device
     mf, ils = _tabs(qm, "i4")
     L = patch.shape[0]

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function.  At first use it
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``h264tpu_torch/_build/`` (named by a hash of the source, so an edited source
-is rebuilt) and loaded with ``ctypes``.  Importing this module builds nothing.
+``h264tpu_torch/_build/`` (named by a hash of the source and of the shared
+``csrc/*.cuh`` headers, so an edited source is rebuilt) and loaded with
+``ctypes``.  Importing this module builds nothing.
 The native host stages (``csrc/avc_native.cpp`` through ``avc/native.py``,
 ``csrc/fvc_native.cpp`` through ``entropy/native.py``) build the same way
 with ``g++`` (:func:`build_host`).  Builds are serialised by a lock within a
@@ -25,7 +26,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("cross_cells", "deblock")
+SOURCES = ("cross_cells", "deblock", "intra4")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -35,6 +36,7 @@ _SIGNATURES = {
     "cross_cells": ("cross_cells_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                            _I, _P]),
     "deblock": ("deblock_launch", [_P, _P, _P, _P, *[_I] * 12, _P]),
+    "intra4": ("intra4_launch", [*[_P] * 21, _I, _I, _I, _P]),
 }
 _LIBS: dict = {}
 _BUILD_LOCK = threading.Lock()
@@ -80,7 +82,12 @@ def build_host(source: Path, out: Path) -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every ``csrc/*.cuh`` header."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -162,3 +169,19 @@ def launch_deblock(plane: torch.Tensor, bs_v: torch.Tensor,
         torch.cuda.current_stream(plane.device).cuda_stream)
     if err:
         raise RuntimeError(f"deblock launch failed with cudaError {err}")
+
+
+def launch_intra4(inputs, outputs, mb_w: int):
+    """Launch ``intra4`` on the current stream: one thread block per lane
+    (arguments checked by the caller, ``avc.device_enc.intra4``).
+    ``inputs``: patch, org16, mby, mbx, l_nnz, t_nnz, l_i4m, t_i4m, qp, lam,
+    ar_off, mf, ils; ``outputs``: modes, zzs, flags, rec, nnz_cells,
+    modes_cells, fadj, cost.  Raises on a launch error."""
+    dev = inputs[0].device
+    err = load("intra4")(
+        *(t.data_ptr() for t in inputs), *(t.data_ptr() for t in outputs),
+        inputs[0].shape[0], mb_w,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"intra4 launch failed with cudaError {err}")

@@ -223,6 +223,22 @@ def test_scan_outputs_share_no_storage_with_a_plan():
                    for k in a)
 
 
+def test_lane_range_stays_int64_beside_an_int32_range_of_its_length():
+    """The scan's lane ranges are int64 even where ``ops/`` has cached an
+    int32 range of the same length under "arange<n>" (the card's intra 4x4
+    kernel takes the lanes' MB rows and columns as int64 and raises on
+    int32), and ``device_const`` refuses a cached name asked for with
+    another dtype or shape."""
+    from h264tpu_torch import device_const
+    device_const("arange37", np.arange(37, dtype=np.int32), "cpu")
+    assert DE._ar(37, "cpu").dtype == torch.int64
+    assert torch.equal(DE._ar(37, "cpu"), torch.arange(37))
+    with pytest.raises(ValueError, match="cached as int32"):
+        device_const("arange37", np.arange(37, dtype=np.int64), "cpu")
+    with pytest.raises(ValueError, match="cached as int32"):
+        device_const("arange37", np.arange(38, dtype=np.int32), "cpu")
+
+
 def test_encode_loads_no_jax():
     code = (
         "import sys, numpy as np\n"

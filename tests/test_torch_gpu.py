@@ -640,3 +640,207 @@ def test_trace_device_spans_resolve_and_name_profile_gaps():
     assert any(label.split(" / ")[0] in names
                for label, _ in summary["idle_gaps"])
     trace.reset()
+
+
+# ---------------------------------------------------------------------------
+# The intra 4x4 sub-scan kernel (csrc/intra4.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def _i4_args(L, mb_w, qps, seed):
+    """Random ``_eval_i4`` arguments on the CPU for L lanes: random and
+    smooth patches, MBs at column 0, a middle column and mb_w - 1 and at
+    rows 0 and after, neighbour modes -2..8 and counts 0..16, adaptive
+    rounding offsets at 0, at AR_RANGE and random, and each lane's QP drawn
+    from ``qps``."""
+    from h264tpu_torch.avc import device_enc as DE, quant_dev as Q
+    rng = np.random.default_rng(seed)
+    smooth = (np.arange(L) % 2 == 1)[:, None, None]
+    base = rng.integers(40, 216, (L, 1, 1))
+    patch = np.where(smooth, np.clip(base + rng.integers(-6, 7, (L, 17, 25)),
+                                     0, 255), rng.integers(0, 256, (L, 17, 25)))
+    org = np.where(smooth, np.clip(base + rng.integers(-9, 10, (L, 16, 16)),
+                                   0, 255), rng.integers(0, 256, (L, 16, 16)))
+    ar_kind = (np.arange(L) % 3)[:, None, None]
+    ar_off = np.where(ar_kind == 0, 0, np.where(
+        ar_kind == 1, Q.AR_RANGE, rng.integers(0, Q.AR_RANGE + 1, (L, 4, 4))))
+    mbx = np.array([0, mb_w // 2, mb_w - 1])[np.arange(L) % 3]
+    mby = np.array([0, 0, 1, 2, 5])[np.arange(L) % 5]
+    qp = torch.as_tensor(rng.choice(qps, L), dtype=torch.int32)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+    lc = dict(mby=torch.as_tensor(mby, dtype=torch.int64),
+              mbx=torch.as_tensor(mbx, dtype=torch.int64))
+    nbr = {k: i32(rng.integers(lo, hi, (L, 4))) for k, lo, hi in (
+        ("l_nnz", 0, 17), ("t_nnz", 0, 17), ("l_i4m", -2, 9),
+        ("t_i4m", -2, 9))}
+    return (i32(patch), i32(org), lc, nbr, qp, DE.lane_lambdas(qp)[0], mb_w,
+            i32(ar_off))
+
+
+def _on(x, dev):
+    """``x`` with every tensor in it (in tuples and dicts) moved to dev."""
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_on(v, dev) for v in x)
+    return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+
+def _i4_tables(name, dev):
+    from h264tpu_torch.avc import qmatrix as QM
+    if name == "flat":
+        return None
+    return {k: {m: torch.as_tensor(t).to(dev) for m, t in tabs.items()}
+            for k, tabs in QM.enc_tables_default().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tables", ["flat", "default"])
+@pytest.mark.parametrize("L,mb_w,qps", [
+    (18, 22, [0]), (18, 22, [12]), (18, 22, [28]), (18, 22, [51]),
+    (18, 22, [0, 12, 28, 51, 20, 37]),          # per-lane mixed QPs
+    (68, 120, [0, 12, 28, 51, 20, 37])])        # 1080p with 17 slices
+def test_intra4_kernel_matches_plain_version(L, mb_w, qps, tables):
+    """Every output of the intra 4x4 sub-scan on the card equals the plain
+    version's on CPU copies of the same inputs, dtypes included."""
+    _need_card()
+    from h264tpu_torch.avc import device_enc as DE
+    args = _i4_args(L, mb_w, qps, seed=L + len(qps) * 7 + qps[0])
+    want = DE._eval_i4(*args, _i4_tables(tables, "cpu"))
+    before = DE.intra4.launches
+    got = DE._eval_i4(*_on(args, "cuda"), _i4_tables(tables, "cuda"))
+    assert DE.intra4.launches == before + 1
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.gpu
+def test_intra4_counts_launches_and_rejects_bad_inputs():
+    """One launch per call outside a capture; what the kernel does not take
+    raises instead of falling back."""
+    _need_card()
+    from h264tpu_torch.avc import device_enc as DE
+    patch, org, lc, nbr, qp, lam, mb_w, ar = _on(_i4_args(4, 5, [28], 0),
+                                                 "cuda")
+    before = DE.intra4.launches
+    for _ in range(3):
+        DE._eval_i4(patch, org, lc, nbr, qp, lam, mb_w, ar)
+    torch.cuda.synchronize()
+    assert DE.intra4.launches == before + 3
+    bad = [dict(patch=patch.to(torch.int64)),
+           dict(patch=patch[:, :, :24]),
+           dict(org=org.transpose(1, 2)),
+           dict(qp=qp.cpu()),
+           dict(lam=lam.to(torch.float32)),
+           dict(ar=ar[:3])]
+    for change in bad:
+        a = dict(dict(patch=patch, org=org, qp=qp, lam=lam, ar=ar), **change)
+        with pytest.raises(ValueError):
+            DE._eval_i4(a["patch"], a["org"], lc, nbr, a["qp"], a["lam"],
+                        mb_w, a["ar"])
+    assert DE.intra4.launches == before + 3
+
+
+def _picture_inputs(kind, dev):
+    """(function, args, kwargs) of one QCIF picture's bands (3 slices) on
+    ``dev``: an I picture, a P picture with n_valid 1 or 3 of 3 stacked
+    references (MB row 4 forced intra), or a B picture; references and
+    colocated motion are made from a moving texture, the same on either
+    device."""
+    from h264tpu_torch.avc import device_enc as DE
+    rng = np.random.default_rng(1)
+    big = rng.normal(0, 1, (160, 192))
+    for _ in range(3):
+        big = (big + np.roll(big, 1, 0) + np.roll(big, 1, 1)) / 3
+    big = 128 + 50 * big / big.std()
+    frames = []
+    for i in range(4):                  # moving 2 pels a frame, noisy
+        y = np.clip(big[2 * i:2 * i + 144, 2 * i:2 * i + 176]
+                    + rng.normal(0, 4, (144, 176)), 0, 255).astype(np.uint8)
+        frames.append((y, y[::2, ::2] // 2 + 60, 255 - y[1::2, 1::2] // 2))
+    sr, S = 4, 3
+    y, u, v = (torch.as_tensor(pl).to(torch.int32).to(dev)
+               for pl in frames[0])
+    refs = [DE.prep_ref(*(torch.as_tensor(pl).to(dev) for pl in f), sr)
+            for f in frames[1:]]
+    stack = [torch.stack([r[k] for r in refs]) for k in range(3)]
+    opts = dict(sr=sr, n_slices=S)
+    force = torch.zeros((9, 11), dtype=torch.bool, device=dev)
+    force[4] = True                     # an intra MB row inside P slices
+    if kind == "I":
+        return DE._encode_bands, (y, u, v, *stack, 28, 0, force), dict(
+            intra_only=True, sub8x8=False, **opts)
+    if kind in ("P1", "P3"):
+        return DE._encode_bands, (y, u, v, *stack, 28, int(kind[1]),
+                                  force), dict(intra_only=False,
+                                               sub8x8=False, **opts)
+    col_mv = torch.as_tensor(rng.integers(-9, 10, (36, 44, 2)),
+                             dtype=torch.int32).to(dev)
+    col_ref = torch.as_tensor(rng.integers(-1, 1, (36, 44)),
+                              dtype=torch.int32).to(dev)
+    r0 = tuple(x[:1] for x in stack)
+    r1 = tuple(x[1:2] for x in stack)
+    return DE._encode_bands_b, (y, u, v, r0, r1, col_mv, col_ref, 30, 1, 1), \
+        opts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["I", "P1", "P3", "B"])
+def test_avc_picture_symbols_and_band_state_card_equal_cpu(kind):
+    """One QCIF picture's decision scan on the card, with the intra 4x4
+    kernel in every step's graph, gives the CPU's symbols, reconstruction
+    and band state exactly."""
+    _need_card()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fn, args, kw = _picture_inputs(kind, dev)
+        sym, st = fn(*args, **kw)
+        out[dev] = ({k: x.cpu() for k, x in sym.items()},
+                    {k: x.cpu() for k, x in st.items()})
+    for want, got in zip(out["cpu"], out["cuda"]):
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+def test_decide_miss_then_hit_replays_the_same_outputs():
+    """``decide`` twice on one shape: the first call misses, runs step 0
+    eagerly (the kernel's first launch) and captures (one more host
+    launch, into the graph); the second replays and captures nothing, and
+    both give the same outputs."""
+    _need_card()
+    from h264tpu_torch import trace
+    from h264tpu_torch.avc import device_enc as DE
+    fn, args, kw = _picture_inputs("P3", "cuda")
+    y, u, v, ups, us, vs, qp, n_valid, force = args
+    mv_q, sad_q = DE.search(y, ups, kw["sr"], qp, kw["n_slices"])
+    DE.drop_plans()
+    runs = []
+    try:
+        for _ in range(2):
+            before = DE.intra4.launches
+            trace.reset()
+            trace.enable()
+            sym, st = DE.decide(y, u, v, ups, us, vs, mv_q, sad_q, qp,
+                                n_valid, force, sr=kw["sr"], sb_h=3,
+                                intra_only=False)
+            torch.cuda.synchronize()
+            trace.disable()
+            names = [r["name"] for r in trace.records()
+                     if r["kind"] == "span"]
+            runs.append((sym, st, names.count("avc.scan.capture"),
+                         DE.intra4.launches - before))
+    finally:
+        trace.disable()
+        trace.reset()
+    (sym0, st0, cap0, n0), (sym1, st1, cap1, n1) = runs
+    assert (cap0, n0) == (1, 2)
+    assert (cap1, n1) == (0, 0)
+    for a, b in ((sym0, sym1), (st0, st1)):
+        assert set(a) == set(b)
+        assert all(torch.equal(a[k], b[k]) for k in a)

@@ -69,6 +69,7 @@ class AVCFrameResult:
     bits: int
     psnr_y: float
     recon: tuple          # (Y, U, V) uint8
+    coded: tuple = None   # the coded picture, where the SPS crops it
 
 
 class AVCCodec:
@@ -142,6 +143,9 @@ class AVCCodec:
             raise ValueError(
                 "slice_groups > 1 requires intra_period == 1 (all-IDR): "
                 "P slices have no FMO support yet")
+        if p.cropped:
+            raise NotImplementedError("the host encoder codes whole "
+                                      "macroblocks: no cropping")
         if check_conformance:
             conformance.check_params(p)
 

@@ -94,6 +94,10 @@ def check_params(p, frame_rate: float = 30.0, bitrate_kbps: float = 0.0):
     profile_check(p.profile_idc, cabac=getattr(p, "cabac", False),
                   fmo=p.slice_groups > 1,
                   transform_8x8=getattr(p, "transform_8x8", False))
-    level_check(p.level_idc, width=p.width, height=p.height,
+    if p.width % 2 or p.height % 2:
+        raise ConformanceError("4:2:0 cropping needs an even visible size, "
+                               f"not {p.width}x{p.height}")
+    # the level limits the coded picture (whole macroblocks)
+    level_check(p.level_idc, width=p.coded_width, height=p.coded_height,
                 frame_rate=frame_rate, num_ref_frames=p.num_ref_frames,
                 bitrate_kbps=bitrate_kbps)

@@ -27,6 +27,14 @@ stream).  The option pairs ``TPUAVCCodec`` refuses raise
 ``NotImplementedError``, as there: WP or basic-unit rate control with a mesh
 among them.
 
+A visible size that is not a multiple of 16 (1920x1080) is coded as the next
+one (1920x1088), as JM's ``auto_crop_bottom`` codes it: the source is padded
+by repeating its last row and column, the SPS crops the padding off, and the
+reference pictures, the deblock and the stream hold the coded picture while
+PSNR and the reported reconstruction cover the visible one.  IPPP takes such
+a size; B pictures, the mesh, WP, basic-unit rate control and MVC raise
+``NotImplementedError``.
+
 Reference: ``JM/lencod/src/lencod.c:876`` encode_sequence.
 """
 
@@ -46,7 +54,7 @@ from . import native as AN
 from . import pack as PK
 from . import pack_cabac as PKC
 from .deblock import DeblockContext
-from .params import AVCParams, assemble_stream, SLICE_I, SLICE_P
+from .params import AVCParams, assemble_stream, crop_window, SLICE_I, SLICE_P
 from .wp import estimate_wp, estimate_wp_lms
 from .codec import AVCFrameResult
 
@@ -133,6 +141,17 @@ def deblock_context(ctx_np: dict, mb_h: int, mb_w: int, qp: int,
 _HOST_SPANS = dict(pack="avc.pack", deblock="avc.host_deblock")
 
 
+def pad_edge(pl: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """A [rows, cols] plane padded to [h, w] by repeating its last column,
+    then its last row (JM ``PaddAutoCropBorders``)."""
+    rows, cols = pl.shape
+    if w > cols:
+        pl = torch.cat([pl, pl[:, -1:].expand(rows, w - cols)], 1)
+    if h > rows:
+        pl = torch.cat([pl, pl[-1:].expand(h - rows, w)], 0)
+    return pl
+
+
 @dataclasses.dataclass
 class _Picture:
     """A picture between its device encode and its result: its trace
@@ -216,6 +235,12 @@ class DeviceAVCCodec:
             raise ValueError("the device path has no FMO")
         if p.mb_h % n_slices:
             raise ValueError(f"n_slices {n_slices} must divide {p.mb_h}")
+        if p.cropped and (bframes > 0 or mesh is not None
+                          or p.weighted_pred):
+            raise NotImplementedError(
+                f"cropping ({p.width}x{p.height} coded as "
+                f"{p.coded_width}x{p.coded_height}) is IPPP without a mesh "
+                "or WP for now")
         if mesh is not None:
             DE.band_slots(mesh, mesh_axis, p.mb_h, n_slices)
         self.device = resolve_device(
@@ -267,7 +292,7 @@ class DeviceAVCCodec:
         if self._dummy is None:
             p, sr, dev = self.p, self.sr, self.device
             P, PC = DE.luma_pad(sr), DE.chroma_pad(sr)
-            H, W = p.height, p.width
+            H, W = p.coded_height, p.coded_width
             self._dummy = (
                 torch.zeros((1, 4, 4, H + 2 * P, W + 2 * P), dtype=torch.uint8,
                             device=dev),
@@ -278,9 +303,18 @@ class DeviceAVCCodec:
         return self._dummy
 
     def planes(self, yuv):
-        """(Y, U, V) uint8 planes -> int32 tensors on the codec's device."""
-        return tuple(torch.as_tensor(np.ascontiguousarray(pl, np.uint8))
-                     .to(self.device).to(torch.int32) for pl in yuv)
+        """(Y, U, V) uint8 planes of the visible size -> int32 tensors of
+        the coded size on the codec's device (span ``avc.upload``): the
+        visible planes are copied, then padded there by ``pad_edge``."""
+        p = self.p
+        with trace.span("avc.upload", self.device):
+            out = tuple(torch.as_tensor(np.ascontiguousarray(pl, np.uint8))
+                        .to(self.device).to(torch.int32) for pl in yuv)
+            if p.cropped:
+                h, w = p.coded_height, p.coded_width
+                out = tuple(pad_edge(pl, h >> (c > 0), w >> (c > 0))
+                            for c, pl in enumerate(out))
+            return out
 
     def prep(self, rec8):
         """``prep_ref`` of a deblocked (Y, U, V) uint8 reconstruction (span
@@ -395,13 +429,16 @@ class DeviceAVCCodec:
         and PSNR, and ``trace.frame_done``.  Returns (result, slices)."""
         with self._host_timed("pack", (pic.seq, pic.idx)):
             rbsps = self._pack(pic)
-        mse = ((np.asarray(pic.yuv[0], np.float64) - pic.rec8[0]) ** 2).mean()
+        p = self.p
+        recon = crop_window(pic.rec8, p.crop_offsets)
+        mse = ((np.asarray(pic.yuv[0], np.float64) - recon[0]) ** 2).mean()
         res = AVCFrameResult(
             frame_type=pic.ftype,
             bits=sum(len(x) for rb in rbsps
                      for x in (rb if isinstance(rb, tuple) else (rb,))) * 8,
             psnr_y=99.99 if mse == 0 else
-            float(10 * np.log10(255.0 ** 2 / mse)), recon=pic.rec8)
+            float(10 * np.log10(255.0 ** 2 / mse)), recon=recon,
+            coded=pic.rec8 if p.cropped else None)
         trace.frame_done(pic.seq, pic.idx, pic.ftype)
         if verbose:
             print(f"frame {pic.idx:3d} {pic.ftype:3s} "
@@ -438,6 +475,9 @@ class DeviceAVCCodec:
             if self.mesh is not None:
                 raise NotImplementedError(
                     "basic-unit RC is not mesh-sharded yet")
+            if p.cropped:
+                raise NotImplementedError(
+                    "basic-unit RC does not take cropping yet")
             rc.basic_units = self.n_slices     # BU = one row-band slice
         R = max(p.num_ref_frames, 1)
         rows = p.mb_h // self.n_slices

@@ -97,6 +97,9 @@ def encode_explicit_seq(frames, p: AVCParams, seq, search_range: int = 16,
     entries raise.  Returns (results in display order, Annex-B stream in
     coding order)."""
     qp = p.qp if qp is None else qp
+    if p.cropped:
+        raise NotImplementedError("the host encoder codes whole "
+                                  "macroblocks: no cropping")
     if any(e["slice_type"] == "B" for e in seq):
         if p.poc_type != 0:
             raise ValueError("B entries need AVCParams(poc_type=0)")

@@ -121,6 +121,8 @@ class MVCStereoCodec:
                  n_slices: int = 1, device=None):
         if p.cabac or p.transform_8x8:
             raise NotImplementedError("MVC path is CAVLC 4x4 for now")
+        if p.cropped:
+            raise NotImplementedError("MVC takes no cropping for now")
         self.p = p
         self.sr = search_range
         self.n_slices = n_slices

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from ..entropy.bitio import BitWriter
 from ..bitstream.nal import NALU, NAL_SPS, NAL_PPS, NAL_IDR, NAL_SLICE, annexb_write
 
@@ -64,13 +66,55 @@ class AVCParams:
     redundant_slices: bool = False
     redundant_qp_offset: int = 4
 
+    # ``width`` x ``height`` is the visible picture; the coded picture is
+    # the next multiple of 16 in each axis, and the SPS crops it back
+    # (spec 7.4.2.1.1 frame_crop_*_offset, in 4:2:0 chroma units)
     @property
     def mb_w(self):
-        return self.width // 16
+        return -(-self.width // 16)
 
     @property
     def mb_h(self):
-        return self.height // 16
+        return -(-self.height // 16)
+
+    @property
+    def coded_width(self):
+        return 16 * self.mb_w
+
+    @property
+    def coded_height(self):
+        return 16 * self.mb_h
+
+    @property
+    def cropped(self) -> bool:
+        return (self.coded_width, self.coded_height) != (self.width,
+                                                         self.height)
+
+    @property
+    def crop_offsets(self):
+        """(left, right, top, bottom) frame_crop offsets in chroma units:
+        the coded picture's padded right columns and bottom rows; None
+        where nothing is cropped."""
+        if not self.cropped:
+            return None
+        return (0, (self.coded_width - self.width) // 2, 0,
+                (self.coded_height - self.height) // 2)
+
+
+def crop_window(frame, crop):
+    """The crop window (spec 7.4.2.1.1: ``crop`` = left, right, top, bottom
+    offsets in 4:2:0 chroma units, or None) of a coded (Y, U, V) picture;
+    the picture itself where nothing is cropped."""
+    if crop is None:
+        return frame
+    left, right, top, bottom = crop
+    out = []
+    for c, pl in enumerate(frame):
+        s = 1 if c else 2                   # CropUnitX = CropUnitY = 2
+        h, w = pl.shape
+        out.append(np.ascontiguousarray(
+            pl[s * top:h - s * bottom, s * left:w - s * right]))
+    return tuple(out)
 
 
 def params_from_dict(d: dict) -> AVCParams:
@@ -119,7 +163,10 @@ def write_sps(p: AVCParams) -> bytes:
     w.ue(p.mb_h - 1)
     w.u(1, 1)                      # frame_mbs_only_flag
     w.u(1, 1)                      # direct_8x8_inference_flag
-    w.u(0, 1)                      # frame_cropping_flag
+    crop = p.crop_offsets
+    w.u(0 if crop is None else 1, 1)  # frame_cropping_flag
+    for off in crop or ():         # left, right, top, bottom
+        w.ue(off)
     has_vui = (p.vui_timing is not None or p.aspect_ratio_idc
                or p.hrd is not None)
     w.u(1 if has_vui else 0, 1)    # vui_parameters_present_flag

@@ -51,6 +51,7 @@ from . import qmatrix as QM
 from .deblock import DeblockContext
 from . import erc as ERC
 from ..models.resilience import slice_group_map
+from .params import crop_window
 
 
 def parse_sps(rbsp: bytes) -> dict:
@@ -301,7 +302,8 @@ class AVCDecoder:
                 f.write(f"{name:<30s} {c:>8d} {b:>10d}\n")
 
     def decode(self, stream: bytes, max_frames: int = None):
-        """Decode all coded pictures; returns list of (y, u, v) uint8.
+        """Decode all coded pictures; returns list of (y, u, v) uint8, each
+        the SPS's crop window of the coded picture that the DPB keeps.
 
         Multi-slice pictures are supported for contiguous (non-FMO)
         slices: a new picture starts at each slice with
@@ -382,6 +384,8 @@ class AVCDecoder:
         for n in annexb_parse(stream):
             if n.nal_type == NAL_SPS:
                 s = parse_sps(n.rbsp)
+                if s["crop"] is not None:
+                    raise NotImplementedError("MVC with a cropped SPS")
                 self.sps[s["sps_id"]] = s
             elif n.nal_type == NAL_SUBSET_SPS:
                 parse_subset_sps(n.rbsp)     # structural validation
@@ -537,7 +541,7 @@ class AVCDecoder:
                         self.dpb.remove(st[0])
                     else:
                         self.dpb.pop(0)
-        return frame
+        return crop_window(frame, sps["crop"])
 
     def _peek_redundant(self, rbsp: bytes, idr: bool):
         """Parse just enough of a slice header to learn

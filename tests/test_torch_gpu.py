@@ -237,6 +237,29 @@ def test_avc_card_cif_stream_decodes_to_recon():
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.gpu
+def test_avc_card_cropped_stream_equals_cpu_stream():
+    """A 352x280 source, coded as 352x288 with SPS cropping, IDR + P + P in
+    9 slices: the card writes the CPU's bytes and reconstructions, coded and
+    visible, and the port's decoder outputs the visible ones."""
+    _need_card()
+    from h264tpu_torch.avc.slice_dec import AVCDecoder
+    frames = _blocky_frames(3, 280, 352)
+    out = {dev: _avc_codec(280, 352, 9, dev).encode_sequence(frames)
+           for dev in ("cpu", "cuda")}
+    res, s_gpu = out["cuda"]
+    assert s_gpu == out["cpu"][1]
+    assert [r.frame_type for r in res] == ["IDR", "P", "P"]
+    for r, c in zip(res, out["cpu"][0]):
+        assert r.recon[0].shape == (280, 352)
+        assert r.coded[0].shape == (288, 352)
+        for a, b in zip(r.recon + r.coded, c.recon + c.coded):
+            np.testing.assert_array_equal(a, b)
+    for r, planes in zip(res, AVCDecoder().decode(s_gpu)):
+        for a, b in zip(r.recon, planes):
+            np.testing.assert_array_equal(a, b)
+
+
 # the two High QCIF configurations of chip_smoke.py: every option of the
 # slice, and the 8x8 transform alone (whose P slices the C packer writes)
 HIGH = {"all": (dict(transform_8x8=True, scaling_matrix="default"), True),

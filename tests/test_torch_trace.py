@@ -163,9 +163,9 @@ def test_one_frame_taken_and_done_per_frame(encoded, kind):
     want = {"fractal": {"fractal.frame", "fractal.upload", "fractal.intra",
                         "fractal.search", "fractal.recon", "fractal.residual",
                         "fractal.deblock", "fractal.entropy"},
-            "avc": {"avc.frame", "avc.search", "avc.scan.load",
-                    "avc.scan.replay", "avc.wait", "avc.host_deblock",
-                    "avc.prep", "avc.pack"}}[kind]
+            "avc": {"avc.frame", "avc.upload", "avc.search",
+                    "avc.scan.load", "avc.scan.replay", "avc.wait",
+                    "avc.host_deblock", "avc.prep", "avc.pack"}}[kind]
     # the untraced pass made the scan plans: the traced one only reuses
     # them, so no scan runs its first step eagerly
     assert names == want
@@ -386,11 +386,14 @@ def test_hierb_spans_once_per_picture_with_their_frames(encoded_hierb):
     assert frames_of("avc.b.wait") == [2, 1, 3, 5]
     assert frames_of("avc.wait") == [0, 4, 6]
     assert frames_of("avc.frame") == [0, 4, 6]
+    # every picture's source upload, inside its device encode
+    assert frames_of("avc.upload") == [0, 4, 2, 1, 3, 6, 5]
     assert frames_of("avc.pack") == [0, 4, 2, 1, 3, 6, 5]
     assert frames_of("avc.host_deblock") == [0, 4, 2, 1, 3, 6, 5]
     ids = {s["id"]: s for s in spans}
     for s in spans:
-        if s["name"].startswith("avc.scan.") or s["name"] == "avc.search":
+        if s["name"].startswith("avc.scan.") or s["name"] in ("avc.search",
+                                                               "avc.upload"):
             parent = ids[s["parent"]]
             assert parent["name"] in ("avc.frame", "avc.b.frame")
             assert parent["frame"] == s["frame"]

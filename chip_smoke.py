@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero before the result line:
    loop filter's kernel pair (``csrc/deblock.cu``) against its plain version
    at CIF luma and chroma, with the device time of a call's two launches,
    the call's time and the plain version's; then the decision scan's
-   intra 4x4 kernel (``csrc/intra4.cu``) against its plain version at one
-   CIF and one 1080p step;
+   intra 4x4 kernel (``csrc/intra4.cu``) and its P inter RD kernel
+   (``csrc/inter_rd.cu``) against their plain versions at one CIF and one
+   1080p step;
 3. the fractal main path at full size: ``FractalCodec.encode_sequence`` of
    1 I + 7 P CIF frames (QP 24, IPPP, SR 7, half-pel, deblock, CAVLC, FVC)
    with the kernel launch counters reset just before and read just after
@@ -40,10 +41,11 @@ Phases, in order; any failure exits non-zero before the result line:
    frames in 9 slices, decoded bit-exactly by the port's ``AVCDecoder``, with
    per-frame bits and PSNR, steady-state P fps, kbps at 30 fps, device ms per
    stage (every stage breakdown here and below checks that a plan miss
-   launches the intra 4x4 kernel twice from the host and a hit not at all),
-   the kernel's device launches in one P frame (torch.profiler: one a
-   wavefront step; so too at 1080p, in phase 6's one-slice CIF P frame and
-   in phase 7's B frame), host ms of the packer and the deblock, and with
+   launches the intra 4x4 kernel, and in a P picture the inter RD kernel,
+   twice from the host and a hit not at all), the kernels' device launches
+   in one P frame (torch.profiler: one of each a wavefront step; so too at
+   1080p, in phase 6's one-slice CIF P frame, and in phase 7's B frame
+   intra4 alone), host ms of the packer and the deblock, and with
    ``--trace`` the
    kernel launches and summed kernel time of one P frame (torch.profiler,
    off by default: the High CIF trace alone takes ~190 s); a QCIF stream in 3
@@ -522,6 +524,95 @@ def phase_intra4_kernel(seed: int):
     return rows
 
 
+def inter_rd_inputs(seed: int, L: int, mb_w: int):
+    """``device_enc._inter_rd``'s arguments for one P scan step on the card:
+    a smooth texture moving (3, 2) pels against its one reference (SR 7),
+    a picture of one band at L 18 and of 4-row bands beyond; each band
+    row's MB at the wavefront's column; MVs around the motion with their
+    SATDs, a band MV field of the motion's vectors, random neighbour
+    counts, QP 28 and the inter rounding offsets."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE, quant_dev as Q
+    rng = np.random.default_rng(seed)
+    sb_h = L if L <= 18 else 4
+    S, sr = L // sb_h, 7
+    ref, cur = smooth_frames(2, S * sb_h * 16, mb_w * 16, seed)
+    ups, us, vs = (x[None] for x in DE.prep_ref(
+        *(torch.as_tensor(pl).cuda() for pl in ref), sr))
+    blocks = DE._org_blocks(*(torch.as_tensor(pl).cuda().to(torch.int32)
+                              for pl in cur))
+    lane = torch.arange(L, device="cuda")
+    band, mby = lane // sb_h, lane % sb_h
+    mbx = torch.clamp(mb_w // 2 - 2 * mby, 0, mb_w - 1)
+    g = (band * sb_h + mby) * mb_w + mbx
+    lc = dict(band=band, mby=mby, mbx=mbx, by0=4 * mby, bx0=4 * mbx)
+    fr = DE._frame_view(blocks["org16"], blocks["orgc"], ups, us, vs, band,
+                        sr, sb_h)
+    motion = np.array([8, 12])                      # (x, y) quarter-pel
+
+    def card(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).cuda()
+
+    sh4, w4 = sb_h * 4, mb_w * 4
+    st = dict(mv=card(motion + rng.integers(-6, 7, (S, sh4, w4, 2))),
+              ref=card(np.where(rng.random((S, sh4, w4)) < 0.8, 0, -2)))
+    mv_mb = card(motion + rng.integers(-6, 7, (L, 1, 9, 2)))
+    sad_mb = card(rng.integers(200, 3000, (L, 1, 9)))
+    cfg = dict(DE._lane_cfg(AVC_QP, L, sb_h, 0, "cuda"), n_valid=1,
+               sub8x8=False, qm=None)
+    nbr = dict(l_nnz=card(rng.integers(0, 17, (L, 4))),
+               t_nnz=card(rng.integers(0, 17, (L, 4))))
+    return (st, lc, fr, mv_mb, sad_mb,
+            torch.zeros(L, dtype=torch.bool, device="cuda"), cfg,
+            blocks["org16"][g], blocks["orgc"][g], nbr,
+            card(np.full((L, 4, 4), Q.OFFSET_INTER)))
+
+
+def phase_inter_rd_kernel(seed: int):
+    """The decision scan's P inter RD kernel (``csrc/inter_rd.cu``) against
+    its plain version (every output exactly equal) at one CIF and one
+    1080p scan step; device time of a launch (torch.profiler), the
+    wrapper's call time (CUDA events over back-to-back calls), the plain
+    version's, and the bound: the lanes' inputs read, the MC windows
+    gathered (six of 16x16 luma and two 9x9 chroma a lane and candidate),
+    the MV cells around each MB, and the outputs written, once each at the
+    HBM rate."""
+    import torch
+    from h264tpu_torch.avc import device_enc as DE
+    rows = {}
+    for name, L, mb_w in INTRA4_CASES:
+        args = inter_rd_inputs(seed + 5, L, mb_w)
+
+        def call():
+            return DE._inter_rd(*args)
+
+        def plain():
+            return DE._inter_rd_reference(*args)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        bad = [k for k in want if got[k].dtype != want[k].dtype
+               or not torch.equal(got[k], want[k])]
+        check(not bad, f"inter_rd != plain version at {name}: {bad}")
+        ms = kernel_device_ms(call, 20, "inter_rd_kernel")
+        call_ms = cuda_ms(call, 200)
+        plain_ms = cuda_ms(plain, 3, 1)
+        st, lc, _, mv_mb, sad_mb, forced, cfg, org16, org2, nbr, ar_p = args
+        lane_in = [*lc.values(), mv_mb, sad_mb, forced, org16, org2, ar_p,
+                   *nbr.values(), cfg["qp"], cfg["qpc"], cfg["lam"],
+                   cfg["lam_me"]]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in lane_in + list(got.values())) \
+            + L * 6 * (256 + 2 * 81 * 4 + 30 * 12) + 2 * 6 * 16 * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = dict(ms=ms, wrapper_call_ms=call_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes", max_abs_err=0)
+        print(f"[kernel inter_rd {name}] L={L} mb_w={mb_w} qp={AVC_QP}: "
+              f"exact; device {ms:.4f} ms (bound {bound_ms:.6f} ms by "
+              f"bytes); call {call_ms:.4f} ms (CUDA events over 200 calls); "
+              f"plain {plain_ms:.3f} ms", flush=True)
+    return rows
+
+
 def phase_kernels(seed: int):
     """cross_cells against its plain version (exact int32 equality) at the
     main path's shapes and the search's other options; device time of one
@@ -912,51 +1003,63 @@ def mb_lambda_me(codec, qp):
     return DE.lane_lambdas(qp_l)[1].repeat_interleave(p.mb_w)
 
 
-def scan_miss_and_hit(run, label: str):
+def scan_miss_and_hit(run, label: str, p_picture: bool = True):
     """``traced(run)`` on a plan miss (the thread's plans dropped first),
-    then on a hit, checking the intra4 wrapper's host counter: the miss
-    launches the kernel twice (the eager step 0 and the capture), the hit
-    not at all (its steps replay the graph).  Returns both results."""
+    then on a hit, checking the scan kernels' host counters: the miss
+    launches intra4, and in a P picture inter_rd, twice (the eager step 0
+    and the capture), the hit not at all (its steps replay the graph); a
+    B picture never launches inter_rd.  Returns both results."""
     from h264tpu_torch.avc import device_enc as DE
     DE.drop_plans()
-    DE.intra4.launches = 0
+    wrappers = (DE.intra4, DE.inter_rd)
+    for w in wrappers:
+        w.launches = 0
     out_miss = traced(run)
-    miss = DE.intra4.launches
+    miss = [w.launches for w in wrappers]
     out_hit = traced(run)
-    hit = DE.intra4.launches - miss
-    check(miss == 2 and hit == 0,
-          f"[{label}] the host launched intra4 {miss} times on a plan miss "
-          f"(eager step and capture: 2) and {hit} on a hit (replays: 0)")
+    hit = [w.launches - m for w, m in zip(wrappers, miss)]
+    want = [2, 2 if p_picture else 0]
+    check(miss == want and hit == [0, 0],
+          f"[{label}] the host launched (intra4, inter_rd) {miss} times on a "
+          f"plan miss (eager step and capture: {want}) and {hit} on a hit "
+          f"(replays: [0, 0])")
     return out_miss, out_hit
 
 
-def intra4_device_launches(run, steps: int, label: str) -> int:
-    """The intra4 kernel's launches in one picture's encode ``run`` on a
-    plan hit, from the device events whose names hold ``intra4_kernel``
-    that torch.profiler records: one a wavefront step.  The profiler's raw
-    events are counted, unparsed: building its event list takes minutes
-    for the ~10^5-10^6 kernels of a picture.  A window with another count
-    than ``steps`` is traced again, up to PROFILER_WINDOWS windows; fails
-    unless one saw ``steps``."""
+SCAN_KERNELS = ("intra4_kernel", "inter_rd_kernel")
+
+
+def scan_kernel_launches(run, steps: int, label: str,
+                         p_picture: bool = True) -> dict:
+    """The scan kernels' launches in one picture's encode ``run`` on a plan
+    hit, from the device events whose names hold ``intra4_kernel`` and
+    ``inter_rd_kernel`` that torch.profiler records: one intra4 a wavefront
+    step, and one inter_rd a step of a P picture (none in a B picture).
+    The profiler's raw events are counted, unparsed: building its event
+    list takes minutes for the ~10^5-10^6 kernels of a picture.  A window
+    with other counts is traced again, up to PROFILER_WINDOWS windows;
+    fails unless one saw them.  Returns {"intra4": n, "inter_rd": n}."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     cuda = torch.autograd.DeviceType.CUDA
+    want = [steps, steps if p_picture else 0]
     torch.cuda.synchronize()
     for attempt in range(1, PROFILER_WINDOWS + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        n = sum(1 for e in prof.profiler.kineto_results.events()
-                if e.device_type() == cuda and "intra4_kernel" in e.name())
-        if n == steps:
-            print(f"[{label}] intra4 launches of one picture on a plan hit: "
-                  f"{n} (torch.profiler), one a wavefront step of {steps}",
-                  flush=True)
-            return n
-        print(f"[profiler] window {attempt} of {PROFILER_WINDOWS} saw {n} "
-              f"intra4_kernel launches in one {label} picture, not {steps}",
-              flush=True)
-    fail(f"[{label}] the profiler saw no window of {steps} intra4_kernel "
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda]
+        n = [sum(1 for x in names if k in x) for k in SCAN_KERNELS]
+        if n == want:
+            print(f"[{label}] scan kernel launches of one picture on a plan "
+                  f"hit: intra4 {n[0]}, inter_rd {n[1]} (torch.profiler; "
+                  f"{steps} wavefront steps)", flush=True)
+            return dict(intra4=n[0], inter_rd=n[1])
+        print(f"[profiler] window {attempt} of {PROFILER_WINDOWS} saw "
+              f"(intra4, inter_rd) launches {n} in one {label} picture, not "
+              f"{want}", flush=True)
+    fail(f"[{label}] the profiler saw no window of {want} (intra4, inter_rd) "
          f"launches in {PROFILER_WINDOWS} tries")
 
 
@@ -970,10 +1073,10 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP, count: str = None):
     replays the plan's graph for every step.  ``host_enqueue`` is
     the host clock from the first call to the return of the last, before
     the sync: when it nears the device span, the host has no time left to
-    pack a frame while the card works.  The intra4 kernel's host launches
+    pack a frame while the card works.  The scan kernels' host launches
     are checked over both runs (:func:`scan_miss_and_hit`); with ``count``
-    (a label) its device launches on a third run are added as
-    ``intra4_launches``."""
+    (a label) their device launches on a third run are added as
+    ``launches`` (:func:`scan_kernel_launches`)."""
     import torch
     from h264tpu_torch.avc import device_enc as DE
     p, sr = codec.p, codec.sr
@@ -1019,7 +1122,7 @@ def avc_stages(codec, frame, ref_rec, qp=AVC_QP, count: str = None):
            "device_total": ev[0].elapsed_time(ev[4]),
            "host_enqueue": host_ms}
     if count:
-        got["intra4_launches"] = intra4_device_launches(
+        got["launches"] = scan_kernel_launches(
             run, p.mb_w + 2 * (p.mb_h // codec.n_slices - 1), count)
     return got
 
@@ -1109,7 +1212,7 @@ def phase_avc_cif(seed: int, profile_dir=None, trace: bool = False):
           f"{np.mean(codec.host_ms['pack'][1:]):.1f}, deblock "
           f"{np.mean(codec.host_ms['deblock'][1:]):.1f}", flush=True)
     stages = avc_stages(codec, frames[1], results[0].recon, count="avc cif P")
-    del stages["intra4_launches"]          # checked and printed by the count
+    del stages["launches"]                 # checked and printed by the count
     print("[avc cif] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     if not trace:
@@ -1159,7 +1262,7 @@ def phase_avc_1080p(seed: int):
           flush=True)
     stages = avc_stages(codec, frames[1], results[0].recon,
                         count="avc 1080p P")
-    n_i4 = stages.pop("intra4_launches")
+    n_i4 = stages.pop("launches")
     print("[avc 1080p] one P frame by stage, ms between CUDA events: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}), flush=True)
     return n_i4
@@ -1232,7 +1335,7 @@ def phase_avc_high_cif(seed: int, profile_dir=None, trace: bool = False):
           f"{codec.host_ms['deblock'][0]:.1f}", flush=True)
     stages = avc_stages(codec, frames[1], results[0].recon,
                         count="avc high cif P")
-    n_i4 = stages.pop("intra4_launches")
+    n_i4 = stages.pop("launches")
     print("[avc high cif] one P frame by stage, ms between CUDA events: "
           + json.dumps({k: round(v, 3) for k, v in stages.items()}),
           flush=True)
@@ -1328,8 +1431,9 @@ def b_codec(H: int, W: int, n_slices: int, device: str, fields=HIERB,
 def avc_b_stages(codec, frame, rec0, rec1, qp: int, count: str = None):
     """Device ms of each stage of one B frame (CUDA events around the calls
     ``device_enc.encode_frame_b`` makes), the second of two runs, with the
-    decision scan split, and the intra4 kernel's launches checked and with
-    ``count`` counted, as in :func:`avc_stages`.  The colocated motion is
+    decision scan split, and the scan kernels' launches checked and with
+    ``count`` counted, as in :func:`avc_stages` (no inter_rd: a B picture
+    has its own candidates).  The colocated motion is
     all intra (an IDR's), which changes no stage's work."""
     import torch
     from h264tpu_torch.avc import device_enc as DE
@@ -1371,7 +1475,7 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int, count: str = None):
         return ev, host_ms
 
     ((ev_miss, _), recs_miss), ((ev, host_ms), recs) = scan_miss_and_hit(
-        run, count or "avc B stages")
+        run, count or "avc B stages", p_picture=False)
     got = {"stage_a_search_l0": ev[0].elapsed_time(ev[1]),
            "stage_b_subpel_l0": ev[1].elapsed_time(ev[2]),
            "stage_a_search_l1": ev[2].elapsed_time(ev[3]),
@@ -1383,8 +1487,8 @@ def avc_b_stages(codec, frame, rec0, rec1, qp: int, count: str = None):
            "device_total": ev[0].elapsed_time(ev[6]),
            "host_enqueue": host_ms}
     if count:
-        got["intra4_launches"] = intra4_device_launches(
-            run, mb_w + 2 * (rows - 1), count)
+        got["launches"] = scan_kernel_launches(run, mb_w + 2 * (rows - 1),
+                                               count, p_picture=False)
     return got
 
 
@@ -1474,7 +1578,7 @@ def phase_avc_hierb_cif(seed: int, trace: bool = False):
     stages = avc_b_stages(codec, frames[2], results[0].recon,
                           results[4].recon, AVC_QP + 1,
                           count="avc hierb cif B")
-    del stages["intra4_launches"]          # checked and printed by the count
+    del stages["launches"]                 # checked and printed by the count
     print("[avc hierb cif] one B frame (the reference B, QP 29) by stage, ms "
           "between CUDA events: " + json.dumps(
               {k: round(v, 3) for k, v in stages.items()}), flush=True)
@@ -2843,6 +2947,7 @@ def main(argv=None) -> int:
     timed("device and build", phase_device_and_build)
     krows, drows = timed("kernels", phase_kernels, args.seed)
     irows = timed("intra4 kernel", phase_intra4_kernel, args.seed)
+    prows = timed("inter_rd kernel", phase_inter_rd_kernel, args.seed)
     launches, cif_stream, cif_p_ms = timed("fractal cif", phase_main_path,
                                            args.seed, args.profile_dir)
     launches_1080p = timed("fractal 1080p", phase_1080p, args.seed)
@@ -2908,10 +3013,10 @@ def main(argv=None) -> int:
              ("1080p_luma_tiled2", "1080p_luma_tiled2",
               launches_sharded["1080p_tiled2"]),
              ("cif_luma_cfgfile", "cif_luma", launches_cfg))
-    # the intra4 kernel's device launches in one P picture as the main
-    # path's scans ran it: CIF in one slice (the benchmark cells' layout),
-    # 1080p in 17; the 9-slice CIF P and B pictures' in their phases' lines
-    i4_launches = {"cif": i4_high, "1080p": i4_1080p}
+    # the scan kernels' device launches in one P picture as the main path's
+    # scans ran them: CIF in one slice (the benchmark cells' layout), 1080p
+    # in 17; the 9-slice CIF P and B pictures' in their phases' lines
+    scan_launches = {"cif": i4_high, "1080p": i4_1080p}
     record = {"kernels": [{
         "name": "cross_cells", "case": case, "route": "cuda",
         "source": "h264tpu_torch/csrc/cross_cells.cu",
@@ -2932,11 +3037,20 @@ def main(argv=None) -> int:
             for case, row in drows.items()] + [{
             "name": "intra4", "case": case, "route": "cuda",
             "source": "h264tpu_torch/csrc/intra4.cu", "replaces": None,
-            "launches": i4_launches[case], "max_abs_err": row["max_abs_err"],
+            "launches": scan_launches[case]["intra4"],
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "wrapper_call_ms": row["wrapper_call_ms"]}
-            for case, row in irows.items()]}
+            for case, row in irows.items()] + [{
+            "name": "inter_rd", "case": case, "route": "cuda",
+            "source": "h264tpu_torch/csrc/inter_rd.cu", "replaces": None,
+            "launches": scan_launches[case]["inter_rd"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "wrapper_call_ms": row["wrapper_call_ms"]}
+            for case, row in prows.items()]}
     print(f"[done] {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

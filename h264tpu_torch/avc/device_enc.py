@@ -636,15 +636,16 @@ def _eval_i4(patch, org16, lc, nbr, qp, lam, mb_w: int, ar_off,
                               qm)
 
 
-def _operand(name: str, t, shape: tuple, dtype, dev) -> torch.Tensor:
+def _operand(name: str, t, shape: tuple, dtype, dev,
+             kernel: str = "intra4") -> torch.Tensor:
     """``t`` if it is a contiguous tensor of ``shape`` and ``dtype`` on
-    ``dev``; raises ValueError otherwise."""
+    ``dev``; raises ValueError naming ``kernel`` otherwise."""
     if not isinstance(t, torch.Tensor) or t.device != dev \
             or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
         got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
                if isinstance(t, torch.Tensor) else type(t).__name__)
-        raise ValueError(f"intra4: {name} must be a contiguous {dtype} "
+        raise ValueError(f"{kernel}: {name} must be a contiguous {dtype} "
                          f"tensor {shape} on {dev}, not {got}")
     return t
 
@@ -1173,6 +1174,164 @@ def _ssd(a, b, dims):
     return ((a - b) ** 2).sum(dims, dtype=torch.int32)
 
 
+def _inter_rd(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2, nbr,
+              ar_p) -> dict:
+    """The P picture's inter candidates with their residual coding and RD
+    costs, for every lane of a step.  On a CUDA tensor this launches the
+    hand-written kernel (:func:`inter_rd`) or raises; on a CPU tensor it
+    runs :func:`_inter_rd_reference`."""
+    if mv_mb.device.type == "cuda":
+        return inter_rd(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2,
+                        nbr, ar_p)
+    if mv_mb.device.type != "cpu":
+        raise ValueError(f"_inter_rd: unsupported device {mv_mb.device}")
+    return _inter_rd_reference(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16,
+                               org2, nbr, ar_p)
+
+
+def _inter_rd_reference(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2,
+                        nbr, ar_p) -> dict:
+    """Plain PyTorch version of :func:`_inter_rd`: the candidates of
+    :func:`_inter_candidates` (M of them, [L, M, ...]; with P_Skip's MV and
+    prediction), each coded by :func:`_code_inter_luma` and
+    :func:`_code_chroma` (``zzc``, ``rec``, ``cbpL``, ``fadj``, ``dcl``,
+    ``acz``, ``crecs``, ``cbpC``), the luma blocks' bits (``lum_bits``),
+    and the RD costs of the candidates (``cost_inter`` [L, M]) and of skip
+    (``cost_sk`` [L]), BIG on ``forced`` lanes."""
+    L = org16.shape[0]
+    qp, qpc, lam, qm = cfg["qp"], cfg["qpc"], cfg["lam"], cfg["qm"]
+    out = _inter_candidates(st, lc, fr, mv_mb, sad_mb, cfg)
+    M = out["pred16"].shape[1]
+    zzc, rec, cbpL, fadj = _code_inter_luma(
+        org16[:, None], out["pred16"], qp, ar_p[:, None, None, None], qm)
+    dcl, acz, crecs, cbpC = _code_chroma(org2[:, None], out["predc"], qpc,
+                                         False, qm)
+    ssd = _ssd(org16[:, None], rec, (-1, -2)) \
+        + _ssd(org2[:, None], crecs, (-1, -2, -3))
+    cbp = cbpL | (cbpC << 4)
+    lum_bits = _luma_bits(zzc, cbpL, lc, nbr)
+    cdc_bits = CD.block_bits_est(dcl, 0, 4, chroma_dc=True).sum(
+        -1, dtype=torch.int32)
+    cac_bits = CD.block_bits_est(acz.reshape(L, M, 8, 15), 0, 15).sum(
+        -1, dtype=torch.int32)
+    res_bits = lum_bits + torch.where(cbpC >= 1, cdc_bits, 0) \
+        + torch.where(cbpC == 2, cac_bits, 0)
+    bits = out["hdr"] + 1 + _cbp_ue(cbp) + (cbp > 0).to(torch.int32) \
+        + res_bits
+    out.update(
+        zzc=zzc, rec=rec, cbpL=cbpL, fadj=fadj, dcl=dcl, acz=acz,
+        crecs=crecs, cbpC=cbpC, lum_bits=lum_bits,
+        cost_inter=torch.where(forced[:, None], BIG, _fma(lam, bits, ssd)),
+        cost_sk=torch.where(
+            forced, BIG,
+            _fma(lam, 1.0, _ssd(org16, out["pred16_sk"], (-1, -2))
+                 + _ssd(org2, out["predc_sk"], (-1, -2, -3)))))
+    return out
+
+
+INTER_RD_MAX_R = 16       # list-0 references the kernel takes
+
+
+def _dims(t, n: int) -> tuple:
+    """The last ``n`` sizes of tensor ``t`` (-1 each where it has fewer
+    dims or is no tensor), for the shapes an operand check expects."""
+    if isinstance(t, torch.Tensor) and t.dim() >= n:
+        return tuple(t.shape[t.dim() - n:])
+    return (-1,) * n
+
+
+def inter_rd(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2, nbr,
+             ar_p) -> dict:
+    """:func:`_inter_rd` on CUDA tensors in one launch of
+    ``csrc/inter_rd.cu`` (a thread block per lane and candidate, one more
+    per lane for skip), on the current stream.  With ``sub8x8`` the
+    sub-partitioned P_8x8 (:func:`_sub_candidate`) is searched in PyTorch
+    first and enters the launch as the last candidate.  The scaling tables
+    are ``qm``'s weighted inter ones or the flat ones (as :func:`intra4`
+    takes them).  Raises ValueError on what the kernel does not take: the
+    shapes of the band state, the reference planes and the lanes must fit
+    one another, and at most ``INTER_RD_MAX_R`` references.
+    ``inter_rd.launches`` counts launches."""
+    dev = mv_mb.device
+    i32, i64 = torch.int32, torch.int64
+    L, R, ns, two = _dims(mv_mb, 4)
+    if two != 2 or not 1 <= R <= INTER_RD_MAX_R or ns not in (9, 41):
+        raise ValueError(f"inter_rd: mv_mb must be [L, R <= "
+                         f"{INTER_RD_MAX_R}, 9 or 41, 2], not "
+                         f"{getattr(mv_mb, 'shape', mv_mb)}")
+    S, sh4, w4 = _dims(st["ref"], 3)
+    Hf, Wp = _dims(fr["ups"], 2)
+    Hcf, Wc = _dims(fr["us"], 2)
+    P, PC, band_h, n_valid = fr["P"], fr["PC"], fr["band_h"], cfg["n_valid"]
+    if (sh4 * 4 != band_h or Hf != S * band_h + 2 * P
+            or Wp != 4 * w4 + 2 * P or Hcf != S * band_h // 2 + 2 * PC
+            or Wc != 2 * w4 + 2 * PC):
+        raise ValueError(f"inter_rd: band state {S}x{sh4}x{w4} (band_h "
+                         f"{band_h}), luma planes {Hf}x{Wp} (pad {P}) and "
+                         f"chroma planes {Hcf}x{Wc} (pad {PC}) do not fit")
+
+    def ok(name, t, shape, dtype):
+        return _operand(name, t, shape, dtype, dev, "inter_rd")
+
+    mf, ils = _tabs(cfg["qm"], "p4")
+    if mf is None:
+        mf = Q._quant_coef(dev)
+        ils = device_const("dequant_coef_x16", Q.DEQUANT_COEF * 16, dev)
+    wp_c = fr.get("wp_c")
+    ins = [ok("st mv", st["mv"], (S, sh4, w4, 2), i32),
+           ok("st ref", st["ref"], (S, sh4, w4), i32)]
+    ins += [ok(k, lc[k], (L,), i64) for k in ("band", "mby", "mbx", "by0",
+                                              "bx0")]
+    ins += [ok("mv_mb", mv_mb, (L, R, ns, 2), i32),
+            ok("sad_mb", sad_mb, (L, R, ns), i32),
+            ok("ups", fr["ups"], (R, 4, 4, Hf, Wp), torch.uint8),
+            ok("us", fr["us"], (R, Hcf, Wc), i32),
+            ok("vs", fr["vs"], (R, Hcf, Wc), i32),
+            None if wp_c is None else ok("wp_c", wp_c, (R, 4), i32),
+            ok("org16", org16, (L, 16, 16), i32),
+            ok("org2", org2, (L, 2, 8, 8), i32),
+            ok("ar_p", ar_p, (L, 4, 4), i32),
+            ok("l_nnz", nbr["l_nnz"], (L, 4), i32),
+            ok("t_nnz", nbr["t_nnz"], (L, 4), i32),
+            ok("forced", forced, (L,), torch.bool),
+            ok("qp", cfg["qp"], (L,), i32), ok("qpc", cfg["qpc"], (L,), i32),
+            ok("lam", cfg["lam"], (L,), torch.float64),
+            ok("lam_me", cfg["lam_me"], (L,), torch.float64),
+            ok("mf", mf, (6, 4, 4), i32), ok("ils", ils, (6, 4, 4), i32)]
+    M, extra = 5, {}
+    if cfg["sub8x8"]:
+        sub = _sub_candidate(st, lc, fr, mv_mb, sad_mb, cfg)
+        ins += [ok("sub pred16", sub["pred16"], (L, 16, 16), i32),
+                ok("sub predc", sub["predc"], (L, 2, 8, 8), i32),
+                ok("sub hdr", sub["hdr"], (L,), i64),
+                ok("sub ref", sub["ref"], (L,), i32)]
+        M = 6
+        extra = dict(sub_t=sub["sub"], sub_mvd=sub["mvd_s"], sub_ov=sub["ov"])
+    else:
+        ins += [None] * 4
+    shapes = dict(pred16=(L, M, 16, 16), predc=(L, M, 2, 8, 8), hdr=(L, M),
+                  ref=(L, M), mvds=(L, M, 4, 2), mvs=(L, M, 4, 2),
+                  smv=(L, 2), pred16_sk=(L, 16, 16), predc_sk=(L, 2, 8, 8),
+                  zzc=(L, M, 16, 16), rec=(L, M, 16, 16), cbpL=(L, M),
+                  fadj=(L, M, 4, 4), dcl=(L, M, 2, 4),
+                  acz=(L, M, 2, 2, 2, 15), crecs=(L, M, 2, 8, 8),
+                  cbpC=(L, M), lum_bits=(L, M), cost_inter=(L, M),
+                  cost_sk=(L,))
+    dtypes = dict(hdr=i64, cost_inter=torch.float32, cost_sk=torch.float32)
+    out = {k: torch.empty(v, dtype=dtypes.get(k, i32), device=dev)
+           for k, v in shapes.items()}
+    kernels.launch_inter_rd(ins, list(out.values()),
+                            (L, M, R, ns, n_valid, sh4, w4, Hf, Wp, Hcf, Wc,
+                             P, PC, band_h))
+    with _LAUNCH_LOCK:                 # GOP worker threads launch too
+        inter_rd.launches += 1
+    out.update(extra)
+    return out
+
+
+inter_rd.launches = 0
+
+
 def _intra_candidates(st, lc, fr, cfg, i16_nc: bool = True):
     """The MB's original blocks, the committed neighbour counts and modes
     (``nbr``), and its intra candidates: I16 (bits at the neighbours' nC,
@@ -1263,7 +1422,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
     dev = lc["band"].device
     L = lc["band"].shape[0]
     ar = _ar(L, dev)
-    qp, qpc, lam, qm = cfg["qp"], cfg["qpc"], cfg["lam"], cfg["qm"]
+    qp, lam, qm = cfg["qp"], cfg["lam"], cfg["qm"]
     ar_p = st["ar_p"][lc["band"]]
     org16, org2, nbr, i16, i4, ch = _intra_candidates(st, lc, fr, cfg)
     i16_cost = _fma(lam, 11.0, i16["cost"])
@@ -1286,30 +1445,12 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         ar_p_add = torch.zeros((L, 4, 4), dtype=torch.int32, device=dev)
         t8 = is_skip
     else:
-        cand = _inter_candidates(st, lc, fr, mv_mb, sad_mb, cfg)
-        M = cand["pred16"].shape[1]
-        zzc_m, rec_m, cbpL_m, fadj_m = _code_inter_luma(
-            org16[:, None], cand["pred16"], qp, ar_p[:, None, None, None], qm)
-        dcl_m, acz_m, crecs_m, cbpC_m = _code_chroma(
-            org2[:, None], cand["predc"], qpc, False, qm)
-        ssd_m = _ssd(org16[:, None], rec_m, (-1, -2)) \
-            + _ssd(org2[:, None], crecs_m, (-1, -2, -3))
-        cbp_m = cbpL_m | (cbpC_m << 4)
-        lum_bits = _luma_bits(zzc_m, cbpL_m, lc, nbr)
-        cdc_bits = CD.block_bits_est(dcl_m, 0, 4, chroma_dc=True).sum(
-            -1, dtype=torch.int32)
-        cac_bits = CD.block_bits_est(acz_m.reshape(L, M, 8, 15), 0, 15).sum(
-            -1, dtype=torch.int32)
-        res_bits = lum_bits + torch.where(cbpC_m >= 1, cdc_bits, 0) \
-            + torch.where(cbpC_m == 2, cac_bits, 0)
-        bits_m = cand["hdr"] + 1 + _cbp_ue(cbp_m) + (cbp_m > 0).to(torch.int32) \
-            + res_bits
-        cost_inter = torch.where(forced[:, None], BIG, _fma(lam, bits_m, ssd_m))
-        smv, pred16_sk, predc_sk = cand["smv"], cand["pred16_sk"], cand["predc_sk"]
-        cost_sk = torch.where(
-            forced, BIG,
-            _fma(lam, 1.0, _ssd(org16, pred16_sk, (-1, -2))
-                 + _ssd(org2, predc_sk, (-1, -2, -3))))
+        inter = _inter_rd(st, lc, fr, mv_mb, sad_mb, forced, cfg, org16,
+                          org2, nbr, ar_p)
+        M = inter["pred16"].shape[1]
+        cost_inter, cost_sk = inter["cost_inter"], inter["cost_sk"]
+        smv, pred16_sk, predc_sk = (inter[k] for k in ("smv", "pred16_sk",
+                                                       "predc_sk"))
 
         # intra candidates carry the chroma SSD + bits too
         ch_ssd, ch_bits = _chroma_intra_rd(ch, org2)
@@ -1324,24 +1465,24 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
         use_i16 = win == M + 1
         si = skip_cand | is_intra
         win_m = torch.where(si, 0, torch.clamp(win - 1, 0, M - 1))
-        win_r = torch.where(si, 0, _take(cand["ref"], win_m))
-        win_mvds = torch.where(si[:, None, None], 0, _take(cand["mvds"], win_m))
+        win_r = torch.where(si, 0, _take(inter["ref"], win_m))
+        win_mvds = torch.where(si[:, None, None], 0, _take(inter["mvds"], win_m))
         win_mvs = torch.where(
             is_intra[:, None, None], 0,
             torch.where(skip_cand[:, None, None], smv[:, None].expand(L, 4, 2),
-                        _take(cand["mvs"], win_m)))
+                        _take(inter["mvs"], win_m)))
         nsk = ~skip_cand
         n1, n2, n3 = nsk[:, None], nsk[:, None, None], nsk[:, None, None, None]
-        zzc = torch.where(n2, _take(zzc_m, win_m), 0)
-        rec16_int = torch.where(n2, _take(rec_m, win_m), pred16_sk)
-        cbp_bits_int = torch.where(nsk, _take(cbpL_m, win_m), 0)
-        dcl_int = torch.where(n2, _take(dcl_m, win_m), 0)
+        zzc = torch.where(n2, _take(inter["zzc"], win_m), 0)
+        rec16_int = torch.where(n2, _take(inter["rec"], win_m), pred16_sk)
+        cbp_bits_int = torch.where(nsk, _take(inter["cbpL"], win_m), 0)
+        dcl_int = torch.where(n2, _take(inter["dcl"], win_m), 0)
         acz_int = torch.where(nsk[:, None, None, None, None],
-                              _take(acz_m, win_m), 0)
-        crecs_int = torch.where(n3, _take(crecs_m, win_m), predc_sk)
-        cbp_c_int = torch.where(nsk, _take(cbpC_m, win_m), 0)
-        pred16 = torch.where(n2, _take(cand["pred16"], win_m), pred16_sk)
-        predc = torch.where(n3, _take(cand["predc"], win_m), predc_sk)
+                              _take(inter["acz"], win_m), 0)
+        crecs_int = torch.where(n3, _take(inter["crecs"], win_m), predc_sk)
+        cbp_c_int = torch.where(nsk, _take(inter["cbpC"], win_m), 0)
+        pred16 = torch.where(n2, _take(inter["pred16"], win_m), pred16_sk)
+        predc = torch.where(n3, _take(inter["predc"], win_m), predc_sk)
 
         t8 = torch.zeros_like(nsk)
         if cfg["transform8"]:
@@ -1353,7 +1494,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
                 - _cbp_ue(cbp_bits_int | (cbp_c_int << 4))
             rd8 = _fma(lam, _luma_bits(zz8, cbp8, lc, nbr) + db,
                        _ssd(org16, rec8, (-1, -2)))
-            rd4 = _fma(lam, _take(lum_bits, win_m),
+            rd4 = _fma(lam, _take(inter["lum_bits"], win_m),
                        _ssd(org16, rec16_int, (-1, -2)))
             t8 = nsk & ~is_intra & (cbp8 > 0) & (rd8 < rd4)
             if cfg["sub8x8"]:
@@ -1398,7 +1539,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
             & (cbp_c_int == 0) & (win_mvs[:, 0, 0] == smv[:, 0])
             & (win_mvs[:, 0, 1] == smv[:, 1]))
         ar_p_add = torch.where((is_skip | is_intra)[:, None, None], 0,
-                               _take(fadj_m, win_m))
+                               _take(inter["fadj"], win_m))
 
     # ---- winner outputs ----
     sel_i16 = is_intra & use_i16
@@ -1413,7 +1554,7 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
     inter_code = 1 + emit_m
     if cfg["sub8x8"] and not cfg["intra_only"]:
         is_subw = ~is_intra & ~is_skip & (emit_m == M - 1)
-        mv_cells = torch.where(is_subw[:, None, None, None], cand["sub_ov"],
+        mv_cells = torch.where(is_subw[:, None, None, None], inter["sub_ov"],
                                mv_cells)
         inter_code = torch.where(emit_m == M - 1, 7, inter_code)
     ref_cells = torch.where(is_intra, -1, win_r)[:, None, None].expand(L, 4, 4)
@@ -1441,9 +1582,9 @@ def _mb_compute(st, lc, fr, mv_mb, sad_mb, forced, cfg):
             out["sub"] = torch.zeros((L, 4), dtype=i32, device=dev)
             out["mvd_s"] = torch.zeros((L, 4, 4, 2), dtype=i32, device=dev)
         else:
-            out["sub"] = torch.where(is_subw[:, None], cand["sub_t"], 0)
+            out["sub"] = torch.where(is_subw[:, None], inter["sub_t"], 0)
             out["mvd_s"] = torch.where(is_subw[:, None, None, None],
-                                       cand["sub_mvd"], 0)
+                                       inter["sub_mvd"], 0)
     return upd, out
 
 
@@ -1490,7 +1631,7 @@ def _frame_view(org16, orgc, ups, us, vs, band, sr: int, sb_h: int,
     (views of them) the MC gathers read, each lane's band, and the chroma
     WP weights ``wp_c`` [R, 4] (None: no weighting)."""
     return dict(org16=org16, orgc=orgc, ups=ups, ups_flat=ups.view(-1),
-                us=us, us_flat=us.view(-1), vs_flat=vs.view(-1),
+                us=us, us_flat=us.view(-1), vs=vs, vs_flat=vs.view(-1),
                 P=luma_pad(sr), PC=chroma_pad(sr), band=band,
                 band_h=sb_h * 16, wp_c=wp_c)
 

@@ -1,5 +1,5 @@
 // cavlc_est.cuh — the CAVLC bit estimate of the encoder's RD decisions
-// (avc/cavlc_dev.py block_bits_est) for one luma block, in one thread.
+// (avc/cavlc_dev.py block_bits_est) for one block, in one thread.
 //
 // The plain version works on whole tensors: it sorts each block's levels by
 // scan rank (nonzero positions first, then zero positions, each in scan
@@ -13,7 +13,8 @@
 //   ranks included, so run_above(rho) = rsum[n-1] - rsum[rho] telescopes to
 //   pend + 1 - n - pos(rho) + rho, where pend is the position of rank n-1
 //   (the largest zero position, or n-1 when every level is nonzero).
-// Chroma DC blocks (their own token and total_zeros tables) are not here.
+// Chroma DC blocks (N = 4) take their own coeff_token and total_zeros
+// tables, as the plain version's chroma_dc=True does.
 
 #pragma once
 
@@ -65,6 +66,17 @@ __constant__ int RB_LEN[7][16] = {
     {2, 3, 3, 3, 3, 3, 3, 0, 0, 0, 0, 0, 0, 0, 0, 0},
     {3, 3, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 0}};
 
+// chroma DC coeff_token lengths [TrailingOnes][TotalCoeff] (Table 9-5,
+// nC = -1), avc/tables.py CHROMA_DC_TOKEN_LEN
+__constant__ int CDC_TOKEN_LEN[4][5] = {{2, 6, 6, 6, 6},
+                                        {0, 1, 6, 7, 8},
+                                        {0, 0, 3, 7, 8},
+                                        {0, 0, 0, 6, 7}};
+
+// chroma DC total_zeros lengths [TotalCoeff - 1][total_zeros] (Table
+// 9-9a), avc/tables.py CHROMA_DC_TZ_LEN
+__constant__ int CDC_TZ_LEN[3][4] = {{1, 2, 3, 3}, {1, 2, 2, 0}, {1, 1, 0, 0}};
+
 __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
@@ -89,8 +101,10 @@ __device__ __forceinline__ int level_len(int labs, int sign, int vlcnum) {
 }
 
 // Estimated bits of one block of N zig-zag levels zz[0..N-1] (N = max_coeff,
-// 15 or 16) at nC nc: cavlc_dev.block_bits_est(zz, nc, N).
-template <int N>
+// 15 or 16) at nC nc: cavlc_dev.block_bits_est(zz, nc, N); with CHROMA_DC
+// (N = 4) of a chroma DC block, whose nC is not read:
+// cavlc_dev.block_bits_est(zz, 0, 4, chroma_dc=True).
+template <int N, bool CHROMA_DC = false>
 __device__ int block_bits_est(const int* zz, int nc) {
   int v[N];
 #pragma unroll
@@ -122,7 +136,8 @@ __device__ int block_bits_est(const int* zz, int nc) {
   const int t1 = min(min(m, 3), total);
 
   const int vt = nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
-  int bits = (vt == 3 ? 6 : TOKEN_LEN[vt][t1][total]) + t1;
+  int bits = (CHROMA_DC ? CDC_TOKEN_LEN[t1][total]
+              : vt == 3 ? 6 : TOKEN_LEN[vt][t1][total]) + t1;
 
   // levels in coding order: the first coded level has reverse rank t1
   const int init = (total > 10 && t1 < 3) ? 1 : 0;
@@ -150,7 +165,9 @@ __device__ int block_bits_est(const int* zz, int nc) {
   }
 
   if (total > 0 && total < N)
-    bits += TZ_LEN[clamp_int(total - 1, 0, 14)][clamp_int(tz, 0, 15)];
+    bits += CHROMA_DC
+        ? CDC_TZ_LEN[clamp_int(total - 1, 0, 2)][clamp_int(tz, 0, 3)]
+        : TZ_LEN[clamp_int(total - 1, 0, 14)][clamp_int(tz, 0, 15)];
 
   // run_before of ranks 1..total-1, from the telescoped zerosLeft
   int rho = 0, prev = -1;

@@ -41,17 +41,17 @@
 
 #include <cuda_runtime.h>
 
+#include "avc_block.cuh"
 #include "cavlc_est.cuh"
 
 namespace {
+
+using namespace avc4;
 
 constexpr int MODES = 9;
 constexpr int THREADS = MODES * 16;   // one thread per (mode, pixel)
 constexpr int PW = 25;                // the patch is 17 x 25: row 0 and
 constexpr int PATCH = 17 * PW;        // column 0 are the neighbours
-constexpr int LEVEL_LIMIT = 2063;     // the CAVLC level clamp
-constexpr int AR_WEIGHT = 8;          // JM AdaptRndWeight
-constexpr float BIG = 1e18f;          // cost of a mode that is not allowed
 
 // the blocks in coding order (tables.BLOCK_SCAN), and whether block k's
 // top-right neighbour inside the MB is coded before it (_TR_INMB_OK)
@@ -59,9 +59,6 @@ __constant__ int SCAN_Y[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
 __constant__ int SCAN_X[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
 __constant__ int TR_INMB_OK[16] = {0, 0, 1, 0, 0, 0, 1, 0,
                                    1, 1, 1, 0, 1, 0, 1, 0};
-// the zig-zag position of raster coefficient p (transform.ZIGZAG_INV)
-__constant__ int ZZ_INV[16] = {0, 1, 5, 6, 2, 4, 7, 12,
-                               3, 8, 11, 13, 9, 10, 14, 15};
 
 struct In {
   const int* patch;        // [L, 17, 25] reconstruction around the MB
@@ -90,14 +87,6 @@ struct Out {
   int* fadj;               // [L, 4, 4]
   float* cost;             // [L]
 };
-
-// x + lam * y rounded once to float32 (device_enc._fma).  The product of a
-// float32 lambda and a float32 integer is exact in float64, so a contracted
-// multiply-add could not change it either.
-__device__ __forceinline__ float rd_cost(double lam, int bits, int ssd) {
-  const double a = (double)(float)ssd, b = (double)(float)bits;
-  return __double2float_rn(__dadd_rn(a, __dmul_rn(lam, b)));
-}
 
 // The 13 neighbours of a block as intra_dev.pred4x4_all orders them:
 // s(0) the corner, s(1..8) the row above (5..8 replaced by s(4) without the
@@ -175,20 +164,6 @@ __device__ int pred_sample(int m, int r, int c, const Nbr& s, bool at,
   }
 }
 
-// Entry k of Cf v for the rows of Cf = [[1,1,1,1],[2,1,-1,-2],[1,-1,-1,1],
-// [1,-2,2,-1]] (transform._fwd_stage)
-__device__ __forceinline__ int fwd(int v0, int v1, int v2, int v3, int k) {
-  const int s03 = v0 + v3, d03 = v0 - v3, s12 = v1 + v2, d12 = v1 - v2;
-  return k == 0 ? s03 + s12 : k == 1 ? 2 * d03 + d12
-       : k == 2 ? s03 - s12 : d03 - 2 * d12;
-}
-
-// Entry k of the JM inverse butterfly with >>1 (transform._inv_stage)
-__device__ __forceinline__ int inv(int v0, int v1, int v2, int v3, int k) {
-  const int a = v0 + v2, b = v0 - v2, c = (v1 >> 1) - v3, d = v1 + (v3 >> 1);
-  return k == 0 ? a + d : k == 1 ? b + c : k == 2 ? b - c : a - d;
-}
-
 __global__ void __launch_bounds__(THREADS)
 intra4_kernel(In in, Out out) {
   __shared__ int pat[PATCH];
@@ -247,34 +222,22 @@ intra4_kernel(In in, Out out) {
 
     // coefficient (r, c): Cf X Cf^T, then quantiser, zig-zag, dequantiser
     {
-      const int* x = tmp[m];
-      int u[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        u[a] = fwd(x[4 * a], x[4 * a + 1], x[4 * a + 2], x[4 * a + 3], c);
-      const int w = fwd(u[0], u[1], u[2], u[3], r);
-      const int aw = abs(w);
-      const int l = min((aw * mfq[p] + offq[p]) >> (15 + per), LEVEL_LIMIT);
-      const int lv = w < 0 ? -l : w > 0 ? l : 0;
+      const int w = fdct_at(tmp[m], r, c);
+      const int lv = quant(w, mfq[p], offq[p], per);
       wco[m][p] = w;
       lev[m][p] = lv;
       zz[m][ZZ_INV[p]] = lv;
-      deq[m][p] = (((lv * ilsq[p]) << per) + 8) >> 4;
+      deq[m][p] = dequant(lv, ilsq[p], per);
     }
     __syncthreads();
 
     // inverse transform: rows ...
-    {
-      const int* d = deq[m] + 4 * r;
-      tmp[m][p] = inv(d[0], d[1], d[2], d[3], c);
-    }
+    tmp[m][p] = idct_row(deq[m], r, c);
     __syncthreads();
 
     // ... then columns, reconstruction and squared error
     {
-      const int* x = tmp[m];
-      const int v = inv(x[c], x[4 + c], x[8 + c], x[12 + c], r);
-      const int rv = min(max(pred[m][p] + ((v + 32) >> 6), 0), 255);
+      const int rv = recon(pred[m][p], idct_col(tmp[m], r, c));
       const int e = org[oy * 16 + ox] - rv;
       rec[m][p] = rv;
       sq[m][p] = e * e;
@@ -324,15 +287,8 @@ intra4_kernel(In in, Out out) {
         if (cost[i] < cost[best]) best = i;
       pat[(1 + 4 * y4 + r) * PW + 1 + 4 * x4 + c] = rec[best][p];
       out.zzs[((long long)lane * 16 + k) * 16 + p] = zz[best][p];
-      // adaptive rounding adjustment (quant_dev.ar_fadjust), in int32's
-      // wrap-around arithmetic as the plain version's tensors have it
-      const int w = wco[best][p], la = abs(lev[best][p]);
-      const int qbits = 15 + per;
-      const unsigned scaled = (unsigned)(abs(w) * mfq[p]);
-      const int adj = (int)((unsigned)AR_WEIGHT
-                            * (scaled - ((unsigned)la << qbits))
-                            + (1u << qbits)) >> (qbits + 1);
-      fadj[p] += (w != 0 && la != 0) ? adj : 0;
+      // adaptive rounding adjustment (quant_dev.ar_fadjust)
+      fadj[p] += ar_adjust(wco[best][p], lev[best][p], mfq[p], per);
       if (t == 0) {
         int nnz = 0;
 #pragma unroll

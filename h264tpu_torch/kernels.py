@@ -26,7 +26,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("cross_cells", "deblock", "intra4")
+SOURCES = ("cross_cells", "deblock", "intra4", "inter_rd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -37,6 +37,7 @@ _SIGNATURES = {
                                            _I, _P]),
     "deblock": ("deblock_launch", [_P, _P, _P, _P, *[_I] * 12, _P]),
     "intra4": ("intra4_launch", [*[_P] * 21, _I, _I, _I, _P]),
+    "inter_rd": ("inter_rd_launch", [*[_P] * 49, *[_I] * 15, _P]),
 }
 _LIBS: dict = {}
 _BUILD_LOCK = threading.Lock()
@@ -185,3 +186,21 @@ def launch_intra4(inputs, outputs, mb_w: int):
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"intra4 launch failed with cudaError {err}")
+
+
+def launch_inter_rd(inputs, outputs, sizes):
+    """Launch ``inter_rd`` on the current stream: a thread block per lane
+    and candidate, one more per lane for skip (arguments checked by the
+    caller, ``avc.device_enc.inter_rd``).  ``inputs``: the 29 operands of
+    ``inter_rd_launch`` in its order, None for an absent optional one (the
+    WP weights, the sub-partitioned candidate); ``outputs``: its 20
+    outputs; ``sizes``: L, M, R, ns, n_valid, sh4, w4, Hf, Wp, Hcf, Wc, P,
+    PC, band_h.  Raises on a launch error."""
+    dev = outputs[0].device
+    err = load("inter_rd")(
+        *(None if t is None else t.data_ptr() for t in inputs),
+        *(t.data_ptr() for t in outputs), *sizes,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"inter_rd launch failed with cudaError {err}")

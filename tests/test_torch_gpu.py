@@ -768,6 +768,151 @@ def test_intra4_counts_launches_and_rejects_bad_inputs():
     assert DE.intra4.launches == before + 3
 
 
+# ---------------------------------------------------------------------------
+# The P inter candidates' RD kernel (csrc/inter_rd.cu) against its plain
+# version
+# ---------------------------------------------------------------------------
+
+def _inter_rd_args(L, mb_w, qps, R, n_valid, tables, wp, sub8x8, seed):
+    """Random ``_inter_rd`` arguments on the CPU for one step of L lanes:
+    a one-band picture at L 18, 4-row bands at more; each lane's MB in its
+    band at column 0, mb_w - 1 or between and at band row 0 or after; a
+    band MV field of random cells (refs -2..R-1); MVs small and large
+    enough that every MC window hits the band view's clamps; adaptive
+    rounding offsets at 0,
+    AR_RANGE and between; every fifth lane forced intra; each lane's QP
+    from ``qps``; explicit-WP chroma weights with ``wp``; with ``sub8x8``
+    the 41 slots of High profile's sub-partitions.  Planes are flat
+    around 128 (so that residuals quantize to few levels) or noise."""
+    from h264tpu_torch.avc import device_enc as DE, quant_dev as Q
+    rng = np.random.default_rng(seed)
+    sb_h = L if L <= 18 else 4
+    S, sr = L // sb_h, 7
+    H, W = S * sb_h * 16, mb_w * 16
+    P, PC = DE.luma_pad(sr), DE.chroma_pad(sr)
+    lane = np.arange(L)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64)
+
+    def planes(shape):                  # flat (small residuals) or noise
+        flat = rng.integers(126, 131, shape, dtype=np.uint8)
+        noise = rng.integers(0, 256, shape, dtype=np.uint8)
+        return np.where(rng.random(shape[:-2] + (1, 1)) < 0.5, flat, noise)
+
+    ups = torch.as_tensor(planes((R, 4, 4, H + 2 * P, W + 2 * P)))
+    us, vs = (i32(planes((R, H // 2 + 2 * PC, W // 2 + 2 * PC)))
+              for _ in range(2))
+    mby = lane % sb_h
+    mbx = np.where(lane % 3 == 0, 0, np.where(
+        lane % 3 == 1, mb_w - 1, rng.integers(0, mb_w, L)))
+    band = lane // sb_h
+    lc = dict(band=i64(band), mby=i64(mby), mbx=i64(mbx), by0=i64(4 * mby),
+              bx0=i64(4 * mbx))
+    st = dict(mv=i32(rng.integers(-40, 41, (S, sb_h * 4, mb_w * 4, 2))),
+              ref=i32(rng.integers(-2, R, (S, sb_h * 4, mb_w * 4))))
+    ns = 41 if sub8x8 else 9
+    big = rng.random((L, R, ns, 1)) < 0.3
+    mv_mb = i32(np.where(big, rng.integers(-900, 901, (L, R, ns, 2)),
+                         rng.integers(-24, 25, (L, R, ns, 2))))
+    sad_mb = i32(rng.integers(0, 6000, (L, R, ns)))
+    org16 = i32(planes((L, 16, 16)))
+    org2 = i32(planes((L, 2, 8, 8)))
+    ar_kind = (lane % 3)[:, None, None]
+    ar_p = i32(np.where(ar_kind == 0, 0, np.where(
+        ar_kind == 1, Q.AR_RANGE, rng.integers(0, Q.AR_RANGE + 1, (L, 4, 4)))))
+    nbr = dict(l_nnz=i32(rng.integers(0, 17, (L, 4))),
+               t_nnz=i32(rng.integers(0, 17, (L, 4))))
+    forced = torch.as_tensor(lane % 5 == 4)
+    qp = i32(rng.choice(qps, L))
+    lam, lam_me = DE.lane_lambdas(qp)
+    qpc = i32([Q.chroma_qp(int(q), 0) for q in qp])
+    cfg = dict(qp=qp, qpc=qpc, lam=lam, lam_me=lam_me, n_valid=n_valid,
+               sub8x8=sub8x8, qm=_i4_tables(tables, "cpu"))
+    wp_c = i32(np.stack([rng.integers(1, 128, R), rng.integers(-20, 21, R),
+                         rng.integers(1, 128, R), rng.integers(-20, 21, R)],
+                        -1)) if wp else None
+    fr = DE._frame_view(None, None, ups, us, vs, lc["band"], sr, sb_h, wp_c)
+    return st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2, nbr, ar_p
+
+
+def _inter_rd_on(args, dev):
+    """``_inter_rd_args`` moved to ``dev``, its frame view rebuilt there."""
+    from h264tpu_torch.avc import device_enc as DE
+    st, lc, fr, *rest = args
+    lc = _on(lc, dev)
+    fr = DE._frame_view(None, None, *(fr[k].to(dev) for k in ("ups", "us",
+                                                               "vs")),
+                        lc["band"], fr["P"] - 4, fr["band_h"] // 16,
+                        _on(fr["wp_c"], dev))
+    return (_on(st, dev), lc, fr, *(_on(a, dev) for a in rest))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tables", ["flat", "default"])
+@pytest.mark.parametrize("L,mb_w,qps,R,n_valid,wp,sub8x8", [
+    (18, 22, [0], 1, 1, False, False),
+    (18, 22, [12], 3, 3, False, False),
+    (18, 22, [28], 3, 2, True, False),
+    (18, 22, [51], 3, 1, False, True),
+    (18, 22, [0, 12, 28, 51, 20, 37], 3, 3, True, True),   # per-lane QPs
+    (68, 120, [0, 12, 28, 51, 20, 37], 1, 1, False, False),  # 1080p
+    (68, 120, [0, 12, 28, 51, 20, 37], 3, 3, True, True)])
+def test_inter_rd_kernel_matches_plain_version(L, mb_w, qps, R, n_valid, wp,
+                                               sub8x8, tables):
+    """Every output of the P inter candidates' RD on the card equals the
+    plain version's on CPU copies of the same inputs, dtypes included."""
+    _need_card()
+    from h264tpu_torch.avc import device_enc as DE
+    args = _inter_rd_args(L, mb_w, qps, R, n_valid, tables, wp, sub8x8,
+                          seed=L + R * 5 + len(qps) * 7 + qps[0])
+    want = DE._inter_rd(*args)
+    before = DE.inter_rd.launches
+    got = DE._inter_rd(*_inter_rd_on(args, "cuda"))
+    assert DE.inter_rd.launches == before + 1
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.gpu
+def test_inter_rd_counts_launches_and_rejects_bad_inputs():
+    """One launch per call outside a capture; what the kernel does not take
+    raises instead of falling back."""
+    _need_card()
+    from h264tpu_torch.avc import device_enc as DE
+    args = _inter_rd_on(_inter_rd_args(4, 5, [28], 2, 2, "flat", False,
+                                       False, 0), "cuda")
+    st, lc, fr, mv_mb, sad_mb, forced, cfg, org16, org2, nbr, ar_p = args
+    before = DE.inter_rd.launches
+    for _ in range(3):
+        DE._inter_rd(*args)
+    torch.cuda.synchronize()
+    assert DE.inter_rd.launches == before + 3
+    bad = [dict(mv_mb=mv_mb.to(torch.int64)),                  # dtype
+           dict(org16=org16[:, :, :15]),                       # shape
+           dict(org2=org2.transpose(2, 3)),                    # strides
+           dict(ar_p=ar_p.cpu()),                              # device
+           dict(sad_mb=sad_mb[:3]),
+           dict(forced=forced.to(torch.int32)),
+           dict(cfg=dict(cfg, lam=cfg["lam"].to(torch.float32))),
+           dict(st=dict(st, ref=st["ref"][:, :-1])),
+           dict(fr=dict(fr, us=fr["us"][:, 1:])),
+           dict(mv_mb=mv_mb.repeat(1, 9, 1, 1),                # R > 16
+                sad_mb=sad_mb.repeat(1, 9, 1))]
+    names = ("st", "lc", "fr", "mv_mb", "sad_mb", "forced", "cfg", "org16",
+             "org2", "nbr", "ar_p")
+    for change in bad:
+        a = dict(zip(names, args), **change)
+        with pytest.raises(ValueError):
+            DE._inter_rd(*(a[n] for n in names))
+    assert DE.inter_rd.launches == before + 3
+
+
 def _picture_inputs(kind, dev):
     """(function, args, kwargs) of one QCIF picture's bands (3 slices) on
     ``dev``: an I picture, a P picture with n_valid 1 or 3 of 3 stacked
@@ -815,8 +960,9 @@ def _picture_inputs(kind, dev):
 @pytest.mark.parametrize("kind", ["I", "P1", "P3", "B"])
 def test_avc_picture_symbols_and_band_state_card_equal_cpu(kind):
     """One QCIF picture's decision scan on the card, with the intra 4x4
-    kernel in every step's graph, gives the CPU's symbols, reconstruction
-    and band state exactly."""
+    kernel in every step's graph (and the inter RD kernel in a P
+    picture's), gives the CPU's symbols, reconstruction and band state
+    exactly."""
     _need_card()
     out = {}
     for dev in ("cpu", "cuda"):
@@ -833,9 +979,9 @@ def test_avc_picture_symbols_and_band_state_card_equal_cpu(kind):
 @pytest.mark.gpu
 def test_decide_miss_then_hit_replays_the_same_outputs():
     """``decide`` twice on one shape: the first call misses, runs step 0
-    eagerly (the kernel's first launch) and captures (one more host
-    launch, into the graph); the second replays and captures nothing, and
-    both give the same outputs."""
+    eagerly (each kernel's first launch: intra4 and inter_rd) and captures
+    (one more host launch of each, into the graph); the second replays and
+    captures nothing, and both give the same outputs."""
     _need_card()
     from h264tpu_torch import trace
     from h264tpu_torch.avc import device_enc as DE
@@ -846,7 +992,7 @@ def test_decide_miss_then_hit_replays_the_same_outputs():
     runs = []
     try:
         for _ in range(2):
-            before = DE.intra4.launches
+            before = (DE.intra4.launches, DE.inter_rd.launches)
             trace.reset()
             trace.enable()
             sym, st = DE.decide(y, u, v, ups, us, vs, mv_q, sad_q, qp,
@@ -857,13 +1003,14 @@ def test_decide_miss_then_hit_replays_the_same_outputs():
             names = [r["name"] for r in trace.records()
                      if r["kind"] == "span"]
             runs.append((sym, st, names.count("avc.scan.capture"),
-                         DE.intra4.launches - before))
+                         (DE.intra4.launches - before[0],
+                          DE.inter_rd.launches - before[1])))
     finally:
         trace.disable()
         trace.reset()
     (sym0, st0, cap0, n0), (sym1, st1, cap1, n1) = runs
-    assert (cap0, n0) == (1, 2)
-    assert (cap1, n1) == (0, 0)
+    assert (cap0, n0) == (1, (2, 2))
+    assert (cap1, n1) == (0, (0, 0))
     for a, b in ((sym0, sym1), (st0, st1)):
         assert set(a) == set(b)
         assert all(torch.equal(a[k], b[k]) for k in a)
